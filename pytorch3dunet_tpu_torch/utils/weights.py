@@ -1,0 +1,49 @@
+"""Weights for the port's models: from the JAX package's variables, or from a
+torch-format `.pytorch` checkpoint.
+
+Both go through the reference state-dict layout of
+pytorch3dunet_tpu/utils/torch_interop.py, so a checkpoint written by
+`convert3dunet --to torch` or by `save_torch_checkpoint` loads with
+`strict=True`.
+"""
+
+import zipfile
+
+import numpy as np
+import torch
+
+from pytorch3dunet_tpu.utils.torch_interop import batch_stats_to_torch_entries, params_to_torch_state_dict
+
+
+def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's variables ({'params'[, 'batch_stats']}) as the
+    port's state dict."""
+    entries = params_to_torch_state_dict(variables["params"])
+    if variables.get("batch_stats"):
+        entries.update(batch_stats_to_torch_entries(variables["batch_stats"]))
+    # np.array copies: JAX arrays export read-only buffers
+    return {k: torch.from_numpy(np.array(v)) for k, v in entries.items()}
+
+
+def _is_jax_checkpoint(path) -> bool:
+    """The JAX package's npz checkpoints are zips holding `__meta__.npy`
+    (pytorch3dunet_tpu/utils/checkpoint.py `_is_torch_checkpoint`)."""
+    try:
+        with zipfile.ZipFile(path) as z:
+            return "__meta__.npy" in z.namelist()
+    except zipfile.BadZipFile:
+        return False
+
+
+def load_weights(model: torch.nn.Module, path) -> None:
+    """Loads a torch-format checkpoint (a bare state dict or one under
+    'model_state_dict') into `model` with strict key matching."""
+    if _is_jax_checkpoint(path):
+        raise ValueError(
+            f"{path} is a JAX-format checkpoint; convert it first with "
+            f"`convert3dunet --config <config.yml> -i {path} -o <out>.pytorch --to torch`"
+        )
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state_dict" in state:
+        state = state["model_state_dict"]
+    model.load_state_dict(state, strict=True)

@@ -1,0 +1,174 @@
+"""The port's 3x3x3 conv (pytorch3dunet_tpu_torch/ops/conv3d.py) against the
+JAX package's Pallas kernel (interpret mode) and its Conv3D layer.
+
+On the CPU `conv3d_fwd` runs its plain version; the CUDA kernel itself is held
+against that plain version on the GPU by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from pytorch3dunet_tpu.ops import conv_pallas
+from pytorch3dunet_tpu.ops.conv import Conv3D
+from pytorch3dunet_tpu_torch.config import resolve_device
+from pytorch3dunet_tpu_torch.ops import build
+from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, conv3d_fwd, conv3d_fwd_reference, plain_conv
+
+# the shapes of tests/test_conv_pallas.py
+SHAPES = [((1, 6, 20, 12, 5), 5, 4), ((1, 4, 8, 9, 3), 3, 7), ((2, 5, 10, 6, 2), 2, 3)]
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    monkeypatch.setattr(conv_pallas, "_INTERPRET", True)
+
+
+def _inputs(shape, cin, cout, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.rand(*shape).astype(np.float32) - 0.5
+    w = (rs.rand(3, 3, 3, cin, cout) * 0.4 - 0.2).astype(np.float32)
+    b = rs.rand(cout).astype(np.float32)
+    return x, w, b
+
+
+def _port(x, w, b=None):
+    tb = None if b is None else torch.from_numpy(b)
+    return conv3d_fwd(torch.from_numpy(x), torch.from_numpy(w), tb).numpy()
+
+
+@pytest.mark.parametrize("variant", ["roll", "packw", "im2col"])
+@pytest.mark.parametrize("shape,cin,cout", SHAPES)
+def test_matches_pallas_kernel(variant, shape, cin, cout):
+    x, w, b = _inputs(shape, cin, cout, sum(shape))
+    want = np.asarray(conv_pallas.conv3d_fwd(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), variant=variant))
+    np.testing.assert_allclose(_port(x, w, b), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["roll", "packw", "im2col"])
+def test_matches_pallas_kernel_without_bias(variant):
+    x, w, _ = _inputs((1, 4, 10, 8, 6), 6, 8, 3)
+    want = np.asarray(conv_pallas.conv3d_fwd(jnp.asarray(x), jnp.asarray(w), variant=variant))
+    np.testing.assert_allclose(_port(x, w), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,cin,cout", SHAPES[:2])
+def test_matches_jax_conv3d_layer(shape, cin, cout):
+    x, w, b = _inputs(shape, cin, cout, 7)
+    layer = Conv3D(cout)
+    want = layer.apply({"params": {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)}}, jnp.asarray(x))
+    np.testing.assert_allclose(_port(x, w, b), np.asarray(want), atol=1e-5)
+
+
+def test_bf16_accumulates_in_f32():
+    # the case of tests/test_conv_pallas.py: a constant field where bf16
+    # accumulation of 27 taps would visibly drift
+    x = torch.full((1, 6, 10, 10, 16), 1.001, dtype=torch.bfloat16)
+    w = torch.full((3, 3, 3, 16, 4), 0.01, dtype=torch.bfloat16)
+    got = conv3d_fwd(x, w)
+    assert got.dtype == torch.bfloat16
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x.float().numpy()), jnp.asarray(w.float().numpy()), (1, 1, 1), [(1, 1)] * 3,
+        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"))
+    interior = (slice(None), slice(1, -1), slice(1, -1), slice(1, -1))
+    np.testing.assert_allclose(got.float().numpy()[interior], np.asarray(ref)[interior], rtol=2e-2)
+
+
+def test_weight_and_bias_cast_to_input_dtype():
+    x, w, b = _inputs((1, 3, 6, 7, 4), 4, 5, 9)
+    xb = torch.from_numpy(x).bfloat16()
+    got = conv3d_fwd(xb, torch.from_numpy(w), torch.from_numpy(b))
+    want = conv3d_fwd_reference(xb, torch.from_numpy(w).bfloat16(), torch.from_numpy(b).bfloat16())
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["x_rank", "w_shape", "w_channels", "b_shape", "x_dtype", "w_dtype"])
+def test_rejects_bad_inputs(bad):
+    x = torch.zeros(1, 4, 5, 6, 3)
+    w = torch.zeros(3, 3, 3, 3, 2)
+    b = torch.zeros(2)
+    if bad == "x_rank":
+        x = x[0]
+    elif bad == "w_shape":
+        w = torch.zeros(3, 3, 1, 3, 2)
+    elif bad == "w_channels":
+        w = torch.zeros(3, 3, 3, 4, 2)
+    elif bad == "b_shape":
+        b = torch.zeros(3)
+    elif bad == "x_dtype":
+        x = x.double()
+    elif bad == "w_dtype":
+        w = w.int()
+    with pytest.raises((ValueError, TypeError)):
+        conv3d_fwd(x, w, b)
+
+
+def test_rejects_devices_other_than_cpu_and_cuda():
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3d_fwd(torch.zeros(1, 2, 3, 3, 2, device="meta"), torch.zeros(3, 3, 3, 2, 2, device="meta"))
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    conv3d_fwd.launches = 0
+    x, w, b = _inputs((1, 3, 6, 7, 4), 4, 5, 1)
+    _port(x, w, b)
+    layer = Conv3d(4, 5).eval()
+    with torch.no_grad():
+        layer(torch.from_numpy(np.moveaxis(x, -1, 1)))
+    assert conv3d_fwd.launches == 0
+
+
+@pytest.mark.parametrize("kernel_size,padding", [(3, 1), (1, 0)])
+def test_layer_matches_torch_conv3d(kernel_size, padding):
+    rs = np.random.RandomState(kernel_size)
+    layer = Conv3d(6, 4, kernel_size=kernel_size, padding=padding)
+    x = torch.from_numpy(rs.rand(2, 6, 5, 9, 7).astype(np.float32))
+    with torch.no_grad():
+        got = layer(x)
+        with plain_conv():
+            plain = layer(x)
+    want = F.conv3d(x, layer.weight, layer.bias, padding=padding)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(plain, got, rtol=0, atol=0)
+
+
+def test_layer_rejects_other_kernels():
+    with pytest.raises(NotImplementedError):
+        Conv3d(2, 2, kernel_size=5, padding=2)
+
+
+def test_plain_conv_restores_the_kernel_path():
+    from pytorch3dunet_tpu_torch.ops import conv3d
+
+    with pytest.raises(RuntimeError):
+        with plain_conv():
+            assert conv3d._force_plain
+            raise RuntimeError
+    assert not conv3d._force_plain
+
+
+def test_library_named_by_source_hash(tmp_path, monkeypatch):
+    path = build.library_path("conv3d_fwd")
+    assert path.parent == build.BUILD_DIR and path.name.startswith("conv3d_fwd_")
+    assert build.library_path("conv3d_fwd") == path
+    src = tmp_path / "conv3d_fwd.cu"
+    src.write_bytes(build.source_path("conv3d_fwd").read_bytes() + b"\n// edited\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.library_path("conv3d_fwd") != path
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
