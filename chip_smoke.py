@@ -5,27 +5,46 @@
 
 Phases, each fatal on failure:
   1. device: a CUDA device is present; its name and power limit;
-  2. build: the hand-written kernels are compiled from csrc/ with nvcc;
-  3. kernel vs plain: `conv3d_fwd` against `conv3d_fwd_reference` at every 3x3x3
-     conv shape of the UNet3D forward below, in float32 and bfloat16, and at
-     edge shapes;
-  4. main path: sliding-window prediction with the UNet3D of
+  2. build: the hand-written kernels are compiled from csrc/ with nvcc, one
+     nvcc per source, all at once;
+  3. kernels vs plain: `conv3d_fwd` (K2) against `conv3d_fwd_reference` at
+     every 3x3x3 conv shape of the UNet3D forward below, and the packed-weight
+     kernel (K3) at every input-gradient shape of the training step below, in
+     float32 and bfloat16, and both at edge shapes;
+  4. predict path: sliding-window prediction with the UNet3D of
      resources/3DUnet_confocal_boundary/test_config.yml at full width (seeded
      random weights, synthetic volume, 4 patches of 112x234x234 with halo);
      checks the launch count, the output, and one patch against the same
      forward with the plain conv;
-  5. times, with CUDA events: each conv shape (kernel vs plain with TF32 off
-     and on), one patch forward, the whole prediction.
-The line before the last is a JSON object describing the kernels; the last
-line is {"ok": true, "device": {...}}.
+  5. predict times, with CUDA events: each conv shape (kernel vs plain with
+     TF32 off and on), one patch forward, the whole prediction;
+  6. conv backward: `Conv3dFunction`'s dx, dw, db against autograd through
+     `F.conv3d` at one conv shape of each of levels 0-2 of the training patch;
+  7. train path: `UNetTrainer` built from the model, loss, optimizer,
+     lr_scheduler and eval_metric of
+     resources/3DUnet_confocal_boundary/train_config.yml at full width (seeded
+     random weights), 6 Adam steps on one synthetic 80x170x170 batch and 2
+     validations; checks the launch counts of both kernels, the falling loss,
+     the checkpoint, and one step's gradients against the plain conv;
+  8. train times: K3 per input-gradient shape against cuDNN's
+     `conv3d_input` (TF32 off and on), cuDNN's weight gradient per conv shape
+     (TF32 off and on), one train step with the kernels against the plain conv
+     (TF32 off and on), voxels/s and peak memory;
+  9. profile: one train step's device time by kernel (torch.profiler) and the
+     device's busy share.
+TF32 is off for every comparison and every "plain" time unless a line says
+"TF32". The line before the last is a JSON object describing the kernels; the
+last line is {"ok": true, "device": {...}}.
 
 Needs torch and numpy, scipy (the reused host tier); not jax, h5py or yaml.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -33,16 +52,30 @@ import numpy as np
 import torch
 
 SEED = 0
-# the model section of resources/3DUnet_confocal_boundary/test_config.yml
+# the model section of resources/3DUnet_confocal_boundary/test_config.yml and train_config.yml
 MODEL = {"name": "UNet3D", "in_channels": 1, "out_channels": 1, "layer_order": "gcr", "f_maps": 32,
          "num_groups": 8, "final_sigmoid": True}
 PATCH, STRIDE, HALO = (80, 170, 170), (80, 170, 170), (16, 32, 32)
 TRANSFORMER = {"raw": [{"name": "Standardize"}, {"name": "ToTensor", "expand_dims": True}]}
 VOLUME = (160, 170, 340)  # 2 x 1 x 2 patches
+# the loss, optimizer, eval_metric and lr_scheduler sections of
+# resources/3DUnet_confocal_boundary/train_config.yml
+TRAIN_SECTIONS = {
+    "loss": {"name": "BCEDiceLoss", "ignore_index": None, "skip_last_target": True},
+    "optimizer": {"learning_rate": 0.0002, "weight_decay": 1.0e-05},
+    "eval_metric": {"name": "BoundaryAdaptedRandError", "threshold": 0.4, "use_last_target": True,
+                    "use_first_input": True},
+    "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "min", "factor": 0.5, "patience": 30},
+}
+TRAIN_PATCH = (80, 170, 170)
+# the trainer stops after iteration max_num_iterations + 1 (iterations count from 1)
+TRAIN_STEPS, VALIDATE_AFTER = 6, 3
 # max |kernel - plain| <= tol * max |plain|: f32 sums of up to 27 * 384 products
 # in another order; bf16 one rounding of the output
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 FORWARD_TOL = 1e-3  # probabilities of one patch, kernel forward vs plain forward
+BACKWARD_TOL = 1e-4  # dx, dw, db of one conv, relative to max |autograd's|
+GRAD_TOL = 1e-3  # parameter gradients of one train step, relative to max |plain step's| per tensor
 # (N, D, H, W, C, F, bias): C = 1, F = 3, D = 1 and 2, odd H and W, N = 2, F
 # above one feature block, C above one channel chunk, no bias
 EDGE_CASES = [(1, 5, 7, 9, 1, 16, True), (1, 2, 11, 13, 3, 3, True), (2, 4, 9, 31, 32, 64, True),
@@ -73,6 +106,22 @@ def timed_ms(fn, runs=RUNS):
     return statistics.median(times)
 
 
+def with_tf32(fn):
+    """fn() with cuDNN's TF32 on, then off again."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def reset_launches():
+    from pytorch3dunet_tpu_torch.ops import conv3d
+
+    for name in conv3d.launches:
+        conv3d.launches[name] = 0
+
+
 def conv_inputs(shape, c_out, dtype, bias, gen, device):
     c_in = shape[-1]
     x = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -97,15 +146,112 @@ def path_conv_shapes(model, patch_in):
     return shapes
 
 
+def dgrad_shapes(model, patch):
+    """(module name, NDHWC dy shape, C) of every input gradient that one train
+    step on `patch` computes: every 3x3x3 conv but one that reads the raw patch
+    itself. With layer_order 'gcr' there is none such: the first conv reads the
+    output of a GroupNorm whose affine parameters need its input gradient."""
+    first_reads_raw = MODEL["layer_order"][0] == "c"
+    return [(name, (*shape[:4], f), shape[4]) for i, (name, shape, f) in enumerate(path_conv_shapes(model, patch))
+            if not (i == 0 and first_reads_raw)]
+
+
+def randomize_group_norms(model, gen):
+    """GroupNorm affines drawn from `gen`: weights in [0.5, 1.5), biases in [-0.2, 0.2)."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, torch.nn.GroupNorm):
+                module.weight.copy_(torch.rand(module.weight.shape, generator=gen) + 0.5)
+                module.bias.copy_(torch.rand(module.bias.shape, generator=gen) * 0.4 - 0.2)
+
+
+def check_kernel(tag, fn, ref, cases, gen, device):
+    """fn against ref on every (name, shape, c_out, bias) case, in f32 and bf16;
+    returns the largest error of the non-edge cases per dtype and the failures."""
+    errors = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    failed = []
+    with torch.inference_mode():
+        for name, shape, f, bias in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w, b = conv_inputs(shape, f, dtype, bias, gen, device)
+                got = fn(x, w, b)
+                torch.cuda.synchronize()
+                want = ref(x, w, b)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL[dtype] * want.float().abs().max().item()
+                if not name.startswith("edge"):
+                    errors[dtype] = max(errors[dtype], err)
+                ok = got.shape == want.shape and got.dtype == dtype and err <= tol
+                if not ok:
+                    failed.append((name, shape, f, dtype))
+                log(f"[3 {tag}] {name:42s} x{shape} F={f:<3d} {str(dtype)[6:]:8s} bias={bias!s:5s} "
+                    f"max|d|={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
+                del x, w, b, got, want
+    return errors, failed
+
+
+def profile_step(step, step_ms, top=12):
+    """Device time of one call of `step` under torch.profiler, summed by
+    kernel name: the hand-written kernels, then the largest others, and the
+    device's busy share of `step_ms` (the step's CUDA-event time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            by_name[event.name] = by_name.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    if not busy_ms:
+        log("[9 profile] the profiler recorded no device time")
+        return
+    log(f"[9 profile] one train step: device busy {busy_ms:.2f} ms of {step_ms:.2f} ms "
+        f"({100 * busy_ms / step_ms:.1f}% busy) in {len(by_name)} kernel names")
+    ours = [name for name in by_name if "conv3d_fwd_kernel" in name or "conv3d_packw_kernel" in name]
+    others = sorted((name for name in by_name if name not in ours), key=by_name.get, reverse=True)
+    for name in ours + others[:top]:
+        log(f"[9 profile] {by_name[name]:9.2f} ms {100 * by_name[name] / busy_ms:5.1f}%  {name[:110]}")
+
+
+def synthetic_batch(rs):
+    """One (raw, target) batch of the confocal recipe's shape: an instance
+    label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
+    StandardLabelToBoundary(append_label=True) makes it (a voxel is boundary
+    where its 18-neighbourhood holds another label: the thick boundary at
+    connectivity 2), and a standardized raw whose signal is the boundary plus
+    noise."""
+    from scipy import ndimage
+    from scipy.spatial import cKDTree
+
+    grid = np.stack(np.meshgrid(*(np.arange(s, dtype=np.float32) for s in TRAIN_PATCH), indexing="ij"), -1)
+    seeds = rs.rand(60, 3) * np.array(TRAIN_PATCH)
+    label = cKDTree(seeds).query(grid.reshape(-1, 3))[1].reshape(TRAIN_PATCH) + 1
+    footprint = ndimage.generate_binary_structure(3, 2)
+    boundary = (ndimage.maximum_filter(label, footprint=footprint, mode="nearest")
+                != ndimage.minimum_filter(label, footprint=footprint, mode="nearest"))
+    target = np.stack([boundary, label]).astype(np.float32)
+    raw = target[0] + 0.5 * rs.randn(*TRAIN_PATCH).astype(np.float32)
+    raw = (raw - raw.mean()) / raw.std()
+    return raw[None, None].astype(np.float32), target[None]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from pytorch3dunet_tpu_torch.models.unet import get_model
-    from pytorch3dunet_tpu_torch.ops import build
-    from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, conv3d_fwd, conv3d_fwd_reference, plain_conv
+    from pytorch3dunet_tpu_torch.ops import build, conv3d
+    from pytorch3dunet_tpu_torch.ops.conv3d import (Conv3d, Conv3dFunction, conv3d_fwd, conv3d_fwd_reference,
+                                                    conv3d_input_grad, conv3d_input_grad_reference, plain_conv)
     from pytorch3dunet_tpu_torch.predictor import StandardPredictor
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+    from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint
 
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -119,48 +265,35 @@ def main():
 
     # 2. build
     start = time.perf_counter()
-    build.load("conv3d_fwd")
-    log(f"[2 build] conv3d_fwd built and loaded in {time.perf_counter() - start:.1f} s")
-    for line in build.build_logs.get("conv3d_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2 build]   {line.strip()}")
+    libs = build.load_all()
+    log(f"[2 build] {', '.join(build.SIGNATURES)} built and loaded in {time.perf_counter() - start:.1f} s")
+    for name, lib in libs.items():
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[2 build]   {name}: {line.strip()}")
+        if f"{name}_smem_bytes" in build.SIGNATURES[name]:
+            log(f"[2 build]   {name}: {getattr(lib, f'{name}_smem_bytes')()} bytes of dynamic shared memory "
+                f"per block")
 
-    # 3. kernel vs plain
+    # 3. kernels vs plain
     torch.manual_seed(SEED)
     model = get_model(MODEL)
     patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
     shapes = path_conv_shapes(model, patch_in)
+    train_dgrads = dgrad_shapes(model, TRAIN_PATCH)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    cases = [(name, shape, f, True) for name, shape, f in shapes]
-    cases += [(f"edge{i}", case[:5], case[5], case[6]) for i, case in enumerate(EDGE_CASES)]
-    errors = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    failed = []
-    with torch.inference_mode():
-        for name, shape, f, bias in cases:
-            for dtype in (torch.float32, torch.bfloat16):
-                x, w, b = conv_inputs(shape, f, dtype, bias, gen, device)
-                got = conv3d_fwd(x, w, b)
-                torch.cuda.synchronize()
-                want = conv3d_fwd_reference(x, w, b)
-                err = (got.float() - want.float()).abs().max().item()
-                tol = TOL[dtype] * want.float().abs().max().item()
-                if not name.startswith("edge"):
-                    errors[dtype] = max(errors[dtype], err)
-                ok = got.shape == want.shape and got.dtype == dtype and err <= tol
-                if not ok:
-                    failed.append((name, shape, f, dtype))
-                log(f"[3 check] {name:42s} x{shape} F={f:<3d} {str(dtype)[6:]:8s} bias={bias!s:5s} "
-                    f"max|d|={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
-                del x, w, b, got, want
-    check(not failed, f"kernel disagrees with the plain version: {failed}")
+    edges = [(f"edge{i}", case[:5], case[5], case[6]) for i, case in enumerate(EDGE_CASES)]
+    errors, failed = check_kernel("K2", conv3d_fwd, conv3d_fwd_reference,
+                                  [(name, shape, f, True) for name, shape, f in shapes] + edges, gen, device)
+    check(not failed, f"K2 disagrees with the plain version: {failed}")
+    dgrad_cases = [(f"dgrad {name}", shape, c, False) for name, shape, c in train_dgrads]
+    errors_k3, failed = check_kernel("K3", lambda x, w, b: conv3d_fwd(x, w, b, variant="packw"),
+                                     conv3d_fwd_reference, dgrad_cases + edges, gen, device)
+    check(not failed, f"K3 disagrees with the plain version: {failed}")
 
-    # 4. main path at full width
+    # 4. predict path at full width
     gen_cpu = torch.Generator().manual_seed(SEED)
-    with torch.no_grad():
-        for module in model.modules():
-            if isinstance(module, torch.nn.GroupNorm):
-                module.weight.copy_(torch.rand(module.weight.shape, generator=gen_cpu) + 0.5)
-                module.bias.copy_(torch.rand(module.bias.shape, generator=gen_cpu) * 0.4 - 0.2)
+    randomize_group_norms(model, gen_cpu)
     model = model.to(device).eval()
     predictor = StandardPredictor(model, None, MODEL["out_channels"], device)
     rs = np.random.RandomState(SEED)
@@ -169,14 +302,16 @@ def main():
     patches = list(predictor.patches(volume, PATCH, STRIDE, HALO, TRANSFORMER))
     n_conv = len(shapes)
 
-    conv3d_fwd.launches = 0
+    reset_launches()
     start = time.perf_counter()
     out = predictor.predict_array(volume, PATCH, STRIDE, HALO, TRANSFORMER)
     first_s = time.perf_counter() - start
-    launches = conv3d_fwd.launches
-    log(f"[4 main] predict_array {VOLUME} -> {out.shape} in {first_s:.2f} s (first call); "
-        f"{len(patches)} patches of {patch_in}, conv launches {launches} (expected {n_conv} x {len(patches)})")
-    check(launches == n_conv * len(patches), f"conv kernel launched {launches} times")
+    predict_launches = dict(conv3d.launches)
+    log(f"[4 predict] predict_array {VOLUME} -> {out.shape} in {first_s:.2f} s (first call); "
+        f"{len(patches)} patches of {patch_in}, launches {predict_launches} (expected conv3d_fwd "
+        f"{n_conv} x {len(patches)}, conv3d_packw 0)")
+    check(predict_launches == {"conv3d_fwd": n_conv * len(patches), "conv3d_packw": 0},
+          f"predict launched {predict_launches}")
     check(out.shape == (MODEL["out_channels"], *VOLUME), f"output shape {out.shape}")
     check(np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1, f"output in [{out.min()}, {out.max()}]")
 
@@ -190,13 +325,13 @@ def main():
     err = (probs - probs_plain).abs().max().item()
     core = probs[0, 0, HALO[0]:-HALO[0], HALO[1]:-HALO[1], HALO[2]:-HALO[2]].cpu().numpy()
     stitched = out[(0, *patches[0][1])]
-    log(f"[4 main] patch 0: kernel vs plain forward max|d| = {err:.3e} (tol {FORWARD_TOL}); "
+    log(f"[4 predict] patch 0: kernel vs plain forward max|d| = {err:.3e} (tol {FORWARD_TOL}); "
         f"stitched == patch core: {np.array_equal(core, stitched)}; layout copies per forward: {copies}; "
         f"probs in [{out.min():.4f}, {out.max():.4f}], mean {out.mean():.4f}")
     check(err <= FORWARD_TOL, f"kernel forward differs from the plain forward by {err}")
     check(np.array_equal(core, stitched), "stitched prediction differs from the patch forward")
 
-    # 5. times
+    # 5. predict times
     times = []
     with torch.inference_mode():
         for name, shape, f in shapes:
@@ -204,9 +339,7 @@ def main():
             x, w, b = conv_inputs(shape, f, torch.float32, True, gen, device)
             row["kernel_ms"] = timed_ms(lambda: conv3d_fwd(x, w, b))
             row["plain_ms"] = timed_ms(lambda: conv3d_fwd_reference(x, w, b))
-            torch.backends.cudnn.allow_tf32 = True
-            row["plain_tf32_ms"] = timed_ms(lambda: conv3d_fwd_reference(x, w, b))
-            torch.backends.cudnn.allow_tf32 = False
+            row["plain_tf32_ms"] = with_tf32(lambda: timed_ms(lambda: conv3d_fwd_reference(x, w, b)))
             xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
             row["kernel_bf16_ms"] = timed_ms(lambda: conv3d_fwd(xb, wb, bb))
             flop = 2 * 27 * np.prod(shape) * f
@@ -228,9 +361,7 @@ def main():
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         with plain_conv():
             fwd_plain_ms = timed_ms(lambda: model(x0))
-            torch.backends.cudnn.allow_tf32 = True
-            fwd_plain_tf32_ms = timed_ms(lambda: model(x0))
-            torch.backends.cudnn.allow_tf32 = False
+            fwd_plain_tf32_ms = with_tf32(lambda: timed_ms(lambda: model(x0)))
     log(f"[5 forward] one {patch_in} patch: kernel {fwd_ms:.2f} ms | plain conv {fwd_plain_ms:.2f} ms | "
         f"plain conv TF32 {fwd_plain_tf32_ms:.2f} ms | peak memory {peak_gib:.2f} GiB")
 
@@ -242,11 +373,179 @@ def main():
     wall = statistics.median(walls)
     log(f"[5 predict] predict_array {VOLUME}: median {wall:.3f} s of {RUNS} -> "
         f"{np.prod(VOLUME) / wall / 1e6:.3f} Mvoxel/s (runs: {', '.join(f'{t:.3f}' for t in walls)})")
+    del model, predictor, probs, probs_plain, x0
+    torch.cuda.empty_cache()
 
-    kernels = [{"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
-                "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": launches,
-                "max_abs_err": errors[torch.float32], "max_abs_err_bf16": errors[torch.bfloat16],
-                "ms": conv_ms, "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "shapes": n_conv}]
+    # 6. conv backward against autograd through F.conv3d
+    levels_seen = set()
+    for name, shape, f in path_conv_shapes(get_model(MODEL), TRAIN_PATCH):
+        level = int(np.log2(TRAIN_PATCH[1] // shape[2]))
+        if level > 2 or level in levels_seen:
+            continue
+        levels_seen.add(level)
+        x, w, b = (t.requires_grad_() for t in conv_inputs(shape, f, torch.float32, True, gen, device))
+        y = Conv3dFunction.apply(x, w, b)
+        dy = torch.randn(y.shape, generator=gen, device=device)
+        got = torch.autograd.grad(y, (x, w, b), dy)
+        want = torch.autograd.grad(conv3d_fwd_reference(x, w, b), (x, w, b), dy)
+        for grad_name, g, r in zip(("dx", "dw", "db"), got, want):
+            err, tol = (g - r).abs().max().item(), BACKWARD_TOL * r.abs().max().item()
+            log(f"[6 backward] {name:42s} x{shape} F={f:<3d} {grad_name}: max|d|={err:.3e} tol={tol:.3e} "
+                f"{'ok' if err <= tol else 'FAIL'}")
+            check(err <= tol, f"Conv3dFunction {grad_name} of {name} differs from autograd by {err}")
+        del x, w, b, y, dy, got, want
+    check(levels_seen == {0, 1, 2}, f"conv backward checked at levels {sorted(levels_seen)}")
+
+    # 7. train path at full width
+    rs = np.random.RandomState(SEED)
+    train_batch, val_batch = synthetic_batch(rs), synthetic_batch(rs)
+    losses = []
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        config = {"manual_seed": SEED, "device": "cuda", "model": dict(MODEL), **TRAIN_SECTIONS,
+                  "trainer": {"eval_score_higher_is_better": False, "checkpoint_dir": checkpoint_dir,
+                              "validate_after_iters": VALIDATE_AFTER, "log_after_iters": 10**9,
+                              "max_num_epochs": 10**9, "max_num_iterations": TRAIN_STEPS - 1}}
+        trainer = create_trainer(config, loaders={"train": [train_batch], "val": [val_batch]})
+        criterion = trainer.loss_criterion
+
+        def recording_criterion(logits, target):
+            loss = criterion(logits, target)
+            if torch.is_grad_enabled():
+                losses.append(loss.item())
+            return loss
+
+        trainer.loss_criterion = recording_criterion
+        reset_launches()
+        Conv3dFunction.grad_copies = 0
+        start = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - start
+        train_launches = dict(conv3d.launches)
+        grad_copies = Conv3dFunction.grad_copies
+        trainer.loss_criterion = criterion
+        n_val = TRAIN_STEPS // VALIDATE_AFTER
+        n_dgrad = len(train_dgrads)
+        expected = {"conv3d_fwd": n_conv * (TRAIN_STEPS + n_val), "conv3d_packw": n_dgrad * TRAIN_STEPS}
+        log(f"[7 train] fit: {TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validations in {fit_s:.2f} s; "
+            f"launches {train_launches} (expected {expected}); dy layout copies per step "
+            f"{grad_copies / TRAIN_STEPS:.1f}; losses {', '.join(f'{v:.5f}' for v in losses)}; "
+            f"best val ARand {trainer.best_eval_score:.5f}")
+        check(train_launches == expected, f"train launched {train_launches}, expected {expected}")
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        ckpt_path = Path(checkpoint_dir) / "last_checkpoint.pytorch"
+        check(ckpt_path.exists(), "no last_checkpoint.pytorch written")
+        state = load_checkpoint(ckpt_path)
+        get_model(MODEL).load_state_dict(state["model_state_dict"], strict=True)
+        log(f"[7 train] {ckpt_path.name}: {ckpt_path.stat().st_size / 2**20:.1f} MiB, num_iterations "
+            f"{state['num_iterations']}, loads with strict=True")
+
+    model, optimizer = trainer.model, trainer.optimizer
+    inp = torch.from_numpy(train_batch[0]).to(device)
+    target = torch.from_numpy(train_batch[1]).to(device)
+    # the gradient check runs from seeded random GroupNorm affines: near the
+    # default ones (weight 1, bias 0) the first GroupNorm's weight gradient is
+    # zero by symmetry (the next GroupNorm cancels its scale through the
+    # bias-free conv and the ReLU), so f32 roundoff is all there is of it
+    randomize_group_norms(model, gen_cpu)
+
+    def step_grads():
+        model.zero_grad(set_to_none=True)
+        criterion(model(inp)[1], target).backward()
+        return {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+
+    grads, grads_plain = step_grads(), None
+    with plain_conv():
+        grads_plain = step_grads()
+    worst = max(((g - grads_plain[k]).abs().max().item() / max(grads_plain[k].abs().max().item(), 1e-30), k)
+                for k, g in grads.items())
+    log(f"[7 train] one step's parameter grads, kernels vs plain conv: worst max|d| / max|g| = {worst[0]:.3e} "
+        f"({worst[1]}) over {len(grads)} tensors (tol {GRAD_TOL})")
+    check(worst[0] <= GRAD_TOL, f"train-step grads differ from the plain step: {worst}")
+    del grads, grads_plain
+
+    # 8. train times
+    dgrad_times = []
+    with torch.inference_mode():
+        for name, shape, c in train_dgrads:
+            dy, w, _ = conv_inputs(shape, c, torch.float32, False, gen, device)
+            w = w.transpose(3, 4).contiguous()  # (3, 3, 3, C, F) of the forward conv
+            w_torch, dy_ncdhw = w.permute(4, 3, 0, 1, 2), dy.permute(0, 4, 1, 2, 3)
+            x_size = (shape[0], c, *shape[1:4])
+            row = {"conv": name, "dy": shape, "C": c,
+                   "kernel_ms": timed_ms(lambda: conv3d_input_grad(dy, w)),
+                   "plain_ms": timed_ms(lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)),
+                   "plain_tf32_ms": with_tf32(lambda: timed_ms(
+                       lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)))}
+            want = conv3d_input_grad_reference(dy, w)
+            err = (conv3d_input_grad(dy, w) - want).abs().max().item()
+            tol = TOL[torch.float32] * want.abs().max().item()
+            check(err <= tol, f"conv3d_input_grad of {name} differs from its plain version by {err} (tol {tol})")
+            row["kernel_tflops"] = 2 * 27 * np.prod(shape) * c / row["kernel_ms"] / 1e9
+            dgrad_times.append(row)
+            log(f"[8 dgrad] {name:42s} dy{shape} -> C={c:<3d} K3 {row['kernel_ms']:.3f} ms "
+                f"({row['kernel_tflops']:.1f} TFLOP/s) | cuDNN conv3d_input {row['plain_ms']:.3f} ms | "
+                f"TF32 {row['plain_tf32_ms']:.3f} ms | max|d| vs plain {err:.2e} (tol {tol:.2e})")
+            del dy, w, w_torch, dy_ncdhw, want
+    k3_ms = sum(r["kernel_ms"] for r in dgrad_times)
+    k3_plain_ms = sum(r["plain_ms"] for r in dgrad_times)
+    k3_plain_tf32_ms = sum(r["plain_tf32_ms"] for r in dgrad_times)
+    dgrad_tflop = sum(2 * 27 * np.prod(s) * c for _, s, c in train_dgrads) / 1e12
+    log(f"[8 dgrad] all {len(train_dgrads)} input grads of one step: K3 {k3_ms:.2f} ms | cuDNN {k3_plain_ms:.2f} ms "
+        f"| cuDNN TF32 {k3_plain_tf32_ms:.2f} ms | {dgrad_tflop:.3f} TFLOP")
+
+    wgrad_times = []
+    with torch.inference_mode():
+        for name, shape, f in path_conv_shapes(model, TRAIN_PATCH):
+            x, _, _ = conv_inputs(shape, f, torch.float32, False, gen, device)
+            dy = torch.randn((*shape[:4], f), generator=gen, device=device)
+            # the NCDHW views of NDHWC tensors that Conv3dFunction hands to cuDNN
+            args = (x.permute(0, 4, 1, 2, 3), (f, shape[4], 3, 3, 3), dy.permute(0, 4, 1, 2, 3))
+            row = {"conv": name, "x": shape, "F": f,
+                   "plain_ms": timed_ms(lambda: torch.nn.grad.conv3d_weight(*args, padding=1)),
+                   "plain_tf32_ms": with_tf32(lambda: timed_ms(
+                       lambda: torch.nn.grad.conv3d_weight(*args, padding=1)))}
+            wgrad_times.append(row)
+            log(f"[8 wgrad] {name:42s} x{shape} F={f:<3d} cuDNN conv3d_weight {row['plain_ms']:.3f} ms | "
+                f"TF32 {row['plain_tf32_ms']:.3f} ms")
+            del x, dy, args
+    log(f"[8 wgrad] all {len(wgrad_times)} weight grads of one step: cuDNN {sum(r['plain_ms'] for r in wgrad_times):.2f} "
+        f"ms | cuDNN TF32 {sum(r['plain_tf32_ms'] for r in wgrad_times):.2f} ms")
+
+    def train_step():
+        optimizer.zero_grad(set_to_none=True)
+        criterion(model(inp)[1], target).backward()
+        optimizer.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(train_step)
+    step_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with plain_conv():
+        step_plain_ms = timed_ms(train_step)
+        step_plain_tf32_ms = with_tf32(lambda: timed_ms(train_step))
+    voxels = np.prod(TRAIN_PATCH)
+    log(f"[8 train step] {TRAIN_PATCH} batch 1, forward + backward + Adam: kernels {step_ms:.2f} ms "
+        f"({voxels / step_ms / 1e3:.3f} Mvoxel/s) | plain conv {step_plain_ms:.2f} ms "
+        f"({voxels / step_plain_ms / 1e3:.3f} Mvoxel/s) | plain conv TF32 {step_plain_tf32_ms:.2f} ms "
+        f"({voxels / step_plain_tf32_ms / 1e3:.3f} Mvoxel/s) | peak memory {step_peak_gib:.2f} GiB")
+
+    # 9. where the time of one train step goes, by device kernel
+    profile_step(train_step, step_ms)
+
+    kernels = [
+        {"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
+         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
+         "launches_by_path": {"predict": predict_launches["conv3d_fwd"], "train": train_launches["conv3d_fwd"]},
+         "max_abs_err": errors[torch.float32], "max_abs_err_bf16": errors[torch.bfloat16],
+         "ms": conv_ms, "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "shapes": n_conv},
+        {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
+         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
+         "launches_by_path": {"predict": predict_launches["conv3d_packw"],
+                              "train": train_launches["conv3d_packw"]},
+         "max_abs_err": errors_k3[torch.float32], "max_abs_err_bf16": errors_k3[torch.bfloat16],
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "plain_tf32_ms": k3_plain_tf32_ms, "shapes": len(train_dgrads)},
+    ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

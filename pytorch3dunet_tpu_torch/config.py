@@ -8,6 +8,8 @@ device with a warning, as the JAX package maps `cuda`.
 """
 
 import argparse
+import os
+import shutil
 
 import torch
 
@@ -17,8 +19,8 @@ logger = get_logger("ConfigLoader")
 
 _LEGACY_DEVICES = ("tpu", "mps")
 
-# prediction-time override flags: (dotted config path, element type, nargs),
-# the set of pytorch3dunet_tpu/config.py:38-44
+# override flags of both CLIs: (dotted config path, element type, nargs), the
+# set of pytorch3dunet_tpu/config.py:38-44
 _CLI_OVERRIDES = (
     ("model_path", str, None),
     ("loaders.output_dir", str, None),
@@ -82,5 +84,16 @@ def load_config(argv=None) -> tuple[dict, str]:
 
     config["device"] = resolve_device(config.get("device", None))
     if config["device"].type == "cpu":
-        logger.warning("Running on CPU: expect slow prediction")
+        logger.warning("Running on CPU: expect slow training/prediction")
     return config, args.config
+
+
+def copy_config(config: dict, config_path: str):
+    """Copies the config file into the newest run directory under
+    checkpoint_dir/logs (pytorch3dunet_tpu/config.py `copy_config`)."""
+    logs_root = os.path.join(config["trainer"].pop("checkpoint_dir"), "logs")
+    if not os.path.isdir(logs_root):
+        return
+    run_dirs = [entry.path for entry in os.scandir(logs_root) if entry.is_dir()]
+    if run_dirs:
+        shutil.copy2(config_path, os.path.join(max(run_dirs), os.path.basename(config_path)))

@@ -220,6 +220,6 @@ extern "C" int conv3d_fwd_bf16(const void* x, const void* w, const void* b, void
   return dispatch<__nv_bfloat16>(x, w, b, y, N, D, H, W, C, F, stream);
 }
 
-extern "C" const char* conv3d_error_string(int err) {
+extern "C" const char* conv3d_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,4 +1,4 @@
-"""U-Net building blocks as torch modules (NCDHW, eval semantics).
+"""U-Net building blocks as torch modules (NCDHW).
 
 Counterparts of pytorch3dunet_tpu/models/blocks.py. Module names follow the
 reference pytorch-3dunet, so state-dict keys are the reference's
@@ -7,8 +7,10 @@ pytorch3dunet_tpu/utils/torch_interop.py reads and writes.
 
 The `layer_order` string composes each conv unit: 'c' conv, 'g' GroupNorm,
 'b' BatchNorm, 'r' ReLU, 'l' LeakyReLU, 'e' ELU, 'd' dropout, 'D' channel
-dropout. The port runs prediction only: BatchNorm uses its running statistics
-and dropout is the identity once the model is in `eval()`.
+dropout. The blocks train and predict: in `train()` BatchNorm uses batch
+statistics and dropout draws masks, in `eval()` running statistics and the
+identity. Every backward but the conv's (ops/conv3d.py `Conv3dFunction`) is
+torch's own.
 """
 
 import torch

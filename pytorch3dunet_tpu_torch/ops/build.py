@@ -14,6 +14,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from pytorch3dunet_tpu.utils import get_logger
@@ -33,12 +34,20 @@ SIGNATURES = {
     "conv3d_fwd": {
         "conv3d_fwd_f32": (_CONV_ARGS, ctypes.c_int),
         "conv3d_fwd_bf16": (_CONV_ARGS, ctypes.c_int),
-        "conv3d_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "conv3d_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "conv3d_packw": {
+        "conv3d_packw_f32": (_CONV_ARGS, ctypes.c_int),
+        "conv3d_packw_bf16": (_CONV_ARGS, ctypes.c_int),
+        "conv3d_packw_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "conv3d_packw_smem_bytes": ([], ctypes.c_int),
     },
 }
 
 _libs: dict = {}
 _lock = threading.Lock()
+# one lock per source: two sources build at once, one source never twice
+_name_locks: dict[str, threading.Lock] = {}
 # nvcc's output (ptxas register / shared-memory / spill report) per source
 build_logs: dict[str, str] = {}
 
@@ -88,6 +97,8 @@ def load(name: str) -> ctypes.CDLL:
     """Returns the bound library of `csrc/<name>.cu`, building it first if
     this version of the source has not been built."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         so_path = library_path(name)
@@ -100,3 +111,11 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = restype
         _libs[name] = lib
         return lib
+
+
+def load_all(names=None) -> dict[str, ctypes.CDLL]:
+    """Loads every named source (all of `SIGNATURES` by default), running
+    one nvcc per source at the same time."""
+    names = list(SIGNATURES if names is None else names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,15 +1,25 @@
-"""3x3x3 stride-1 pad-1 convolution: the hand-written Hopper kernel and its plain version.
+"""3x3x3 stride-1 pad-1 convolution: the hand-written Hopper kernels, their
+plain versions, and the conv's autograd.
 
 `conv3d_fwd` keeps the contract of the JAX package's Pallas kernel
 (pytorch3dunet_tpu/ops/conv_pallas.py `conv3d_fwd`): x (N, D, H, W, C)
 channels-last, w (3, 3, 3, C, F), b (F,) or None -> (N, D, H, W, F) in x's
-dtype, f32 accumulation, bias fused. A CUDA tensor goes to the kernel in
-`csrc/conv3d_fwd.cu` or raises; a CPU tensor goes to the plain version,
-`conv3d_fwd_reference`. There is no backward yet: a CUDA call that would need
-one raises.
+dtype, f32 accumulation, bias fused. Its `variant` names the Pallas tiling; on
+CUDA each ported tiling is its own kernel:
+- "roll" (K2) -> `csrc/conv3d_fwd.cu`, the forward of every conv;
+- "packw" (K3) -> `csrc/conv3d_packw.cu`, the conv's input gradient;
+- "im2col" (K1) is not ported yet and raises on CUDA.
+A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the plain
+version, `conv3d_fwd_reference`, whatever the variant.
+
+The input gradient of this conv is the same conv run on dy with the taps
+flipped and C and F swapped (`conv3d_input_grad`). `Conv3dFunction` is the
+autograd of the conv on NDHWC tensors: its forward is K2, its input gradient
+K3, its weight gradient `torch.nn.grad.conv3d_weight` (the JAX package leaves
+the weight gradient to XLA, outside any kernel).
 
 `Conv3d` is the model's conv layer (NCDHW in and out, torch weight layout). It
-runs every 3x3x3 pad-1 conv through `conv3d_fwd`, and the 1x1 `final_conv`
+runs every 3x3x3 pad-1 conv through the above, and the 1x1 `final_conv`
 through plain `F.conv3d`, as the JAX package computes that conv outside any
 Pallas kernel.
 """
@@ -23,7 +33,14 @@ import torch.nn.functional as F
 from pytorch3dunet_tpu_torch.ops import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ENTRY = {torch.float32: "conv3d_fwd_f32", torch.bfloat16: "conv3d_fwd_bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# Pallas variant -> the csrc/ source of its CUDA kernel
+KERNELS = {"roll": "conv3d_fwd", "packw": "conv3d_packw"}
+_NOT_PORTED = {"im2col": "ROADMAP Queue 2 K1"}
+
+# launches of each CUDA kernel (by source name) since the last reset; callers
+# set them to 0
+launches = dict.fromkeys(KERNELS.values(), 0)
 
 # set only inside `plain_conv()`
 _force_plain = False
@@ -31,10 +48,12 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_conv():
-    """Runs every `Conv3d` through the plain version, whatever the device.
+    """Runs every `Conv3d` through the plain version, whatever the device:
+    the forward is `conv3d_fwd_reference` and autograd differentiates it, so
+    the input gradient is plain too.
 
-    For tests and for comparing a whole forward with and without the kernel;
-    no CLI path enters it."""
+    For tests and for comparing a whole forward or train step with and
+    without the kernels; no CLI path enters it."""
     global _force_plain
     previous, _force_plain = _force_plain, True
     try:
@@ -71,52 +90,119 @@ def conv3d_fwd_reference(x, w, b=None):
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def conv3d_fwd(x, w, b=None):
+def conv3d_fwd(x, w, b=None, variant: str = "roll"):
     """Fused 3x3x3 conv forward on (N, D, H, W, C) -> (N, D, H, W, F).
 
     `b=None` means zeros; `w` and `b` are cast to x's dtype. On CUDA the
-    hand-written kernel runs, on the current stream; on the CPU the plain
-    version does."""
+    kernel of `variant` runs, on the current stream; on the CPU the plain
+    version does. No autograd: training goes through `Conv3dFunction`."""
+    if variant not in KERNELS and variant not in _NOT_PORTED:
+        raise ValueError(f"conv3d_fwd: unknown variant {variant!r}; expected one of "
+                         f"{sorted([*KERNELS, *_NOT_PORTED])}")
     if x.device.type == "cpu":
         return conv3d_fwd_reference(x, w, b)
     _check(x, w, b)
+    if variant in _NOT_PORTED:
+        raise NotImplementedError(f"conv3d_fwd variant {variant!r} has no CUDA kernel yet ({_NOT_PORTED[variant]})")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_fwd: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
-        raise NotImplementedError("conv3d_fwd has no backward yet: call it under torch.no_grad() "
-                                  "or torch.inference_mode()")
+        raise NotImplementedError("conv3d_fwd has no autograd: call Conv3dFunction.apply, or run it under "
+                                  "torch.no_grad() or torch.inference_mode()")
     if not x.is_contiguous():
         raise ValueError("conv3d_fwd: x must be contiguous (N, D, H, W, C)")
     N, D, H, W, C = x.shape
     Fo = w.shape[-1]
+    name = KERNELS[variant]
     w = w.to(x.dtype).contiguous()
-    b = torch.zeros(Fo, dtype=x.dtype, device=x.device) if b is None else b.to(x.dtype).contiguous()
+    if b is not None:
+        b = b.to(x.dtype).contiguous()
+    elif variant == "roll":  # K2 always reads a bias; K3 takes a null one
+        b = torch.zeros(Fo, dtype=x.dtype, device=x.device)
     y = torch.empty((N, D, H, W, Fo), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = build.load("conv3d_fwd")
+    lib = build.load(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, _ENTRY[x.dtype])(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), N, D, H, W, C, Fo, stream)
+        err = getattr(lib, f"{name}_{_SUFFIX[x.dtype]}")(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(), N, D, H, W, C, Fo,
+            stream)
     if err != 0:
-        raise RuntimeError(f"conv3d_fwd kernel launch failed for x {tuple(x.shape)} {x.dtype}, F={Fo}: "
-                           f"{lib.conv3d_error_string(err).decode()} (cudaError {err})")
-    conv3d_fwd.launches += 1
+        message = getattr(lib, f"{name}_error_string")(err)
+        raise RuntimeError(f"{name} kernel launch failed for x {tuple(x.shape)} {x.dtype}, F={Fo}: "
+                           f"{message.decode()} (cudaError {err})")
+    launches[name] += 1
     return y
 
 
-# launches of the CUDA kernel since the last reset (callers set it to 0)
-conv3d_fwd.launches = 0
+def flip_weight(w):
+    """w (3, 3, 3, C, F) -> w~ (3, 3, 3, F, C), w~[a, b, e, f, c] = w[2-a, 2-b, 2-e, c, f]:
+    the weights of the conv that maps dy to dx."""
+    return w.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+def conv3d_input_grad(dy, w):
+    """dx of the 3x3x3 pad-1 conv with weights `w`, from dy (N, D, H, W, F):
+    K3 on CUDA, `conv3d_input_grad_reference` on the CPU."""
+    return conv3d_fwd(dy, flip_weight(w), None, variant="packw")
+
+
+def conv3d_input_grad_reference(dy, w):
+    """Plain version of `conv3d_input_grad`: `conv3d_fwd_reference` on the same w~."""
+    return conv3d_fwd_reference(dy, flip_weight(w))
+
+
+class Conv3dFunction(torch.autograd.Function):
+    """Autograd of the 3x3x3 pad-1 conv on NDHWC tensors: x (N, D, H, W, C),
+    w (3, 3, 3, C, F), b (F,) or None.
+
+    forward: `conv3d_fwd` (K2 on CUDA). backward: dx by `conv3d_input_grad`
+    (K3 on CUDA) when x needs a gradient, dw by `torch.nn.grad.conv3d_weight`
+    on NCDHW views, db by summing dy. In the UNet, dy arrives NDHWC-contiguous:
+    the backward of the GroupNorm, ReLU or pooling that read the conv's
+    channels-last output keeps that layout. `grad_copies` counts the copies
+    made when it does not."""
+
+    # dy layout copies made in backward since the last reset
+    grad_copies = 0
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        y = conv3d_fwd(x, w, b, variant="roll")
+        # the plain version (CPU) may return a permuted view of its own result;
+        # autograd forbids in-place ops (the ReLU after the conv) on a view
+        # made inside a Function
+        return y.clone() if y._is_view() else y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        if not dy.is_contiguous():
+            dy = dy.contiguous()
+            Conv3dFunction.grad_copies += 1
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_input_grad(dy, w)
+        if ctx.needs_input_grad[1]:
+            dw_torch = torch.nn.grad.conv3d_weight(x.permute(0, 4, 1, 2, 3), (w.shape[4], w.shape[3], 3, 3, 3),
+                                                   dy.permute(0, 4, 1, 2, 3), padding=1)
+            dw = dw_torch.permute(2, 3, 4, 1, 0)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.sum((0, 1, 2, 3))
+        return dx, dw, db
 
 
 class Conv3d(nn.Conv3d):
     """`nn.Conv3d` (torch weight layout and init) on NCDHW tensors whose
-    3x3x3 pad-1 forward is `conv3d_fwd`.
+    3x3x3 pad-1 conv runs on the kernels above.
 
-    The kernel reads the NDHWC view of x: a copy when x is not channels-last
-    in memory (`input_copies` counts those copies). Kernel 1 / padding 0 runs
-    `F.conv3d`."""
+    The kernels read the NDHWC view of x: a copy when x is not channels-last
+    in memory (`input_copies` counts those copies). With grad enabled and a
+    tensor that needs one, the conv goes through `Conv3dFunction`; otherwise
+    straight to `conv3d_fwd`. Kernel 1 / padding 0 runs `F.conv3d`."""
 
     # layout copies made for the kernel's NDHWC input since the last reset
     input_copies = 0
@@ -135,6 +221,11 @@ class Conv3d(nn.Conv3d):
         if not x_cl.is_contiguous():
             x_cl = x_cl.contiguous()
             Conv3d.input_copies += 1
-        fn = conv3d_fwd_reference if _force_plain else conv3d_fwd
-        y = fn(x_cl, self.weight.permute(2, 3, 4, 1, 0), self.bias)
+        w = self.weight.permute(2, 3, 4, 1, 0)
+        if _force_plain:
+            y = conv3d_fwd_reference(x_cl, w, self.bias)
+        elif torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, self.weight, self.bias)):
+            y = Conv3dFunction.apply(x_cl, w, self.bias)
+        else:
+            y = conv3d_fwd(x_cl, w, self.bias)
         return y.permute(0, 4, 1, 2, 3)

@@ -35,14 +35,19 @@ def _is_jax_checkpoint(path) -> bool:
         return False
 
 
-def load_weights(model: torch.nn.Module, path) -> None:
-    """Loads a torch-format checkpoint (a bare state dict or one under
-    'model_state_dict') into `model` with strict key matching."""
+def refuse_jax_checkpoint(path) -> None:
+    """Raises, with the convert hint, when `path` is a JAX-format checkpoint."""
     if _is_jax_checkpoint(path):
         raise ValueError(
             f"{path} is a JAX-format checkpoint; convert it first with "
             f"`convert3dunet --config <config.yml> -i {path} -o <out>.pytorch --to torch`"
         )
+
+
+def load_weights(model: torch.nn.Module, path) -> None:
+    """Loads a torch-format checkpoint (a bare state dict or one under
+    'model_state_dict') into `model` with strict key matching."""
+    refuse_jax_checkpoint(path)
     state = torch.load(path, map_location="cpu", weights_only=True)
     if "model_state_dict" in state:
         state = state["model_state_dict"]

@@ -1,8 +1,10 @@
 """The port's 3x3x3 conv (pytorch3dunet_tpu_torch/ops/conv3d.py) against the
-JAX package's Pallas kernel (interpret mode) and its Conv3D layer.
+JAX package's Pallas kernel (interpret mode) and its Conv3D layer, forward and
+VJP.
 
-On the CPU `conv3d_fwd` runs its plain version; the CUDA kernel itself is held
-against that plain version on the GPU by chip_smoke.py.
+On the CPU `conv3d_fwd` runs its plain version whatever the variant; the CUDA
+kernels themselves are held against that plain version on the GPU by
+chip_smoke.py.
 """
 
 import jax
@@ -15,8 +17,10 @@ import torch.nn.functional as F
 from pytorch3dunet_tpu.ops import conv_pallas
 from pytorch3dunet_tpu.ops.conv import Conv3D
 from pytorch3dunet_tpu_torch.config import resolve_device
-from pytorch3dunet_tpu_torch.ops import build
-from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, conv3d_fwd, conv3d_fwd_reference, plain_conv
+from pytorch3dunet_tpu_torch.ops import build, conv3d
+from pytorch3dunet_tpu_torch.ops.conv3d import (Conv3d, Conv3dFunction, conv3d_fwd, conv3d_fwd_reference,
+                                                conv3d_input_grad, conv3d_input_grad_reference, flip_weight,
+                                                plain_conv)
 
 # the shapes of tests/test_conv_pallas.py
 SHAPES = [((1, 6, 20, 12, 5), 5, 4), ((1, 4, 8, 9, 3), 3, 7), ((2, 5, 10, 6, 2), 2, 3)]
@@ -35,9 +39,9 @@ def _inputs(shape, cin, cout, seed):
     return x, w, b
 
 
-def _port(x, w, b=None):
+def _port(x, w, b=None, variant="roll"):
     tb = None if b is None else torch.from_numpy(b)
-    return conv3d_fwd(torch.from_numpy(x), torch.from_numpy(w), tb).numpy()
+    return conv3d_fwd(torch.from_numpy(x), torch.from_numpy(w), tb, variant=variant).numpy()
 
 
 @pytest.mark.parametrize("variant", ["roll", "packw", "im2col"])
@@ -45,14 +49,101 @@ def _port(x, w, b=None):
 def test_matches_pallas_kernel(variant, shape, cin, cout):
     x, w, b = _inputs(shape, cin, cout, sum(shape))
     want = np.asarray(conv_pallas.conv3d_fwd(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), variant=variant))
-    np.testing.assert_allclose(_port(x, w, b), want, atol=1e-5)
+    np.testing.assert_allclose(_port(x, w, b, variant), want, atol=1e-5)
 
 
 @pytest.mark.parametrize("variant", ["roll", "packw", "im2col"])
 def test_matches_pallas_kernel_without_bias(variant):
     x, w, _ = _inputs((1, 4, 10, 8, 6), 6, 8, 3)
     want = np.asarray(conv_pallas.conv3d_fwd(jnp.asarray(x), jnp.asarray(w), variant=variant))
-    np.testing.assert_allclose(_port(x, w), want, atol=1e-5)
+    np.testing.assert_allclose(_port(x, w, variant=variant), want, atol=1e-5)
+
+
+def _jax_conv_vjp(x, w, b, dy):
+    """(dx, dw, db) of the JAX package's Conv3D layer at x, w, b for cotangent dy."""
+    layer = Conv3D(w.shape[-1])
+
+    def f(x_, w_, b_):
+        return layer.apply({"params": {"kernel": w_, "bias": b_}}, x_)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+
+
+@pytest.mark.parametrize("shape,cin,cout", SHAPES)
+def test_input_grad_matches_pallas_packw_and_jax_vjp(shape, cin, cout):
+    # dx is the packw kernel run on dy with the taps flipped and C / F swapped
+    x, w, b = _inputs(shape, cin, cout, 11)
+    dy = np.random.RandomState(12).rand(*shape[:4], cout).astype(np.float32) - 0.5
+    w_flip = np.ascontiguousarray(w[::-1, ::-1, ::-1].transpose(0, 1, 2, 4, 3))
+    pallas = np.asarray(conv_pallas.conv3d_fwd(jnp.asarray(dy), jnp.asarray(w_flip), variant="packw"))
+    got = conv3d_input_grad(torch.from_numpy(dy), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, pallas, atol=1e-5)
+    np.testing.assert_allclose(got, _jax_conv_vjp(x, w, b, dy)[0], atol=1e-5)
+    np.testing.assert_array_equal(flip_weight(torch.from_numpy(w)).numpy(), w_flip)
+    plain = conv3d_input_grad_reference(torch.from_numpy(dy), torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("shape,cin,cout", SHAPES)
+def test_function_grads_match_jax_vjp(shape, cin, cout):
+    x, w, b = _inputs(shape, cin, cout, 21)
+    dy = np.random.RandomState(22).rand(*shape[:4], cout).astype(np.float32) - 0.5
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    y = Conv3dFunction.apply(xt, wt, bt)
+    np.testing.assert_allclose(y.detach().numpy(), _port(x, w, b), atol=0)
+    got = torch.autograd.grad(y, (xt, wt, bt), torch.from_numpy(dy))
+    for name, g, want in zip(("dx", "dw", "db"), got, _jax_conv_vjp(x, w, b, dy)):
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, err_msg=name)
+
+
+def test_function_skips_the_input_grad_when_x_needs_none():
+    x, w, b = _inputs((1, 3, 6, 7, 4), 4, 5, 31)
+    wt = torch.from_numpy(w).requires_grad_()
+    y = Conv3dFunction.apply(torch.from_numpy(x), wt, None)
+    y.sum().backward()
+    assert wt.grad is not None and wt.grad.shape == (3, 3, 3, 4, 5)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_layer_grads_match_torch_conv3d(with_bias):
+    # the layer goes through Conv3dFunction when grad is on; plain_conv() makes
+    # forward and input gradient plain (autograd through F.conv3d)
+    rs = np.random.RandomState(41)
+    layer = Conv3d(3, 4, bias=with_bias)
+    x = torch.from_numpy(rs.rand(2, 3, 5, 6, 7).astype(np.float32)).requires_grad_()
+    dy = torch.from_numpy(rs.rand(2, 4, 5, 6, 7).astype(np.float32))
+    params = [p for p in layer.parameters()]
+    got = torch.autograd.grad(layer(x), [x, *params], dy)
+    want = torch.autograd.grad(F.conv3d(x, layer.weight, layer.bias, padding=1), [x, *params], dy)
+    with plain_conv():
+        plain = torch.autograd.grad(layer(x), [x, *params], dy)
+    # db sums 420 terms near 0.5: f32 rounding of a sum near 200
+    for g, w_, p in zip(got, want, plain):
+        torch.testing.assert_close(g, w_, rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(p, w_, rtol=1e-6, atol=1e-5)
+
+
+def test_layer_output_takes_an_inplace_relu_in_training():
+    # the plain version returns a view of its own result; the Function must
+    # not hand that view to the in-place ReLU that follows the conv
+    layer = Conv3d(2, 3)
+    x = torch.rand(1, 2, 4, 5, 6).permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+    y = torch.relu_(layer(x.requires_grad_()))
+    y.sum().backward()
+    assert x.grad is not None
+
+
+def test_im2col_has_no_cuda_kernel_yet():
+    # meta tensors stand in for a device that is not the CPU
+    x = torch.zeros(1, 2, 3, 3, 2, device="meta")
+    with pytest.raises(NotImplementedError, match="Queue 2 K1"):
+        conv3d_fwd(x, torch.zeros(3, 3, 3, 2, 2, device="meta"), variant="im2col")
+
+
+def test_unknown_variant_raises():
+    with pytest.raises(ValueError, match="unknown variant"):
+        conv3d_fwd(torch.zeros(1, 2, 3, 3, 2), torch.zeros(3, 3, 3, 2, 2), variant="tapfold")
 
 
 @pytest.mark.parametrize("shape,cin,cout", SHAPES[:2])
@@ -118,14 +209,17 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
         resolve_device("cuda")
 
 
-def test_cpu_calls_do_not_count_as_launches():
-    conv3d_fwd.launches = 0
+def test_cpu_calls_do_not_count_as_launches(monkeypatch):
+    monkeypatch.setattr(conv3d, "launches", dict.fromkeys(conv3d.launches, 0))
     x, w, b = _inputs((1, 3, 6, 7, 4), 4, 5, 1)
-    _port(x, w, b)
+    for variant in ("roll", "packw"):
+        _port(x, w, b, variant)
     layer = Conv3d(4, 5).eval()
     with torch.no_grad():
         layer(torch.from_numpy(np.moveaxis(x, -1, 1)))
-    assert conv3d_fwd.launches == 0
+    xt = torch.from_numpy(np.moveaxis(x, -1, 1)).requires_grad_()
+    layer.train()(xt).sum().backward()
+    assert conv3d.launches == {"conv3d_fwd": 0, "conv3d_packw": 0}
 
 
 @pytest.mark.parametrize("kernel_size,padding", [(3, 1), (1, 0)])
@@ -158,13 +252,29 @@ def test_plain_conv_restores_the_kernel_path():
 
 
 def test_library_named_by_source_hash(tmp_path, monkeypatch):
-    path = build.library_path("conv3d_fwd")
-    assert path.parent == build.BUILD_DIR and path.name.startswith("conv3d_fwd_")
-    assert build.library_path("conv3d_fwd") == path
-    src = tmp_path / "conv3d_fwd.cu"
-    src.write_bytes(build.source_path("conv3d_fwd").read_bytes() + b"\n// edited\n")
+    _check_library_named_by_source_hash(tmp_path, monkeypatch, "conv3d_fwd")
+
+
+def test_packw_library_named_by_source_hash(tmp_path, monkeypatch):
+    _check_library_named_by_source_hash(tmp_path, monkeypatch, "conv3d_packw")
+
+
+def _check_library_named_by_source_hash(tmp_path, monkeypatch, name):
+    path = build.library_path(name)
+    assert path.parent == build.BUILD_DIR and path.name.startswith(f"{name}_")
+    assert build.library_path(name) == path
+    src = tmp_path / f"{name}.cu"
+    src.write_bytes(build.source_path(name).read_bytes() + b"\n// edited\n")
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
-    assert build.library_path("conv3d_fwd") != path
+    assert build.library_path(name) != path
+
+
+def test_every_kernel_has_a_source_and_entry_points():
+    assert set(build.SIGNATURES) == set(conv3d.KERNELS.values()) == set(conv3d.launches)
+    for name, entries in build.SIGNATURES.items():
+        source = build.source_path(name).read_text()
+        for entry in entries:
+            assert f'extern "C" ' in source and f" {entry}(" in source, (name, entry)
 
 
 def test_build_without_nvcc_raises(monkeypatch):

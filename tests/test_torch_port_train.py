@@ -1,0 +1,364 @@
+"""The port's training path (pytorch3dunet_tpu_torch: trainer, optimizer,
+scheduler, checkpoints, train CLI) against the JAX package.
+
+The gradients of one step are held against `jax.grad` of the same loss with
+the same weights; loss trajectories against the JAX step, SGD as the exact
+oracle and Adam with a looser bound (its eps rounds differently in the two
+frameworks, ROADMAP F4). On the CPU every conv runs its plain version; the
+CUDA kernels are held against it on the GPU by chip_smoke.py.
+"""
+
+import os
+import subprocess
+import sys
+
+import h5py
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+import yaml
+
+from pytorch3dunet_tpu.augment.transforms import StandardLabelToBoundary
+from pytorch3dunet_tpu.losses import get_loss_criterion as jax_get_loss_criterion
+from pytorch3dunet_tpu.utils import optim as jax_optim
+from pytorch3dunet_tpu_torch import train
+from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+from pytorch3dunet_tpu_torch.models.unet import get_model
+from pytorch3dunet_tpu_torch.predict import run as predict_run
+from pytorch3dunet_tpu_torch.trainer import UNetTrainer, create_trainer
+from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer
+from pytorch3dunet_tpu_torch.utils.weights import state_dict_from_jax
+from tests.test_torch_port_model import _jax_model_and_variables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = {"name": "UNet3D", "in_channels": 1, "out_channels": 1, "layer_order": "gcr", "f_maps": 8,
+         "num_groups": 4, "num_levels": 2, "final_sigmoid": True}
+# the loss and eval_metric of resources/3DUnet_confocal_boundary/train_config.yml
+LOSS = {"name": "BCEDiceLoss", "ignore_index": None, "skip_last_target": True}
+EVAL_METRIC = {"name": "BoundaryAdaptedRandError", "threshold": 0.4, "use_last_target": True,
+               "use_first_input": True}
+SHAPE = (8, 32, 32)
+# patches of the CLI runs: the slice builder takes H, W >= 64
+CLI_PATCH = (8, 64, 64)
+
+
+def _label(rs, shape):
+    """An instance label of boxes 4 x 8 x 8 voxels with random ids."""
+    cells = rs.randint(1, 20, (shape[0] // 4, shape[1] // 8, shape[2] // 8))
+    return np.kron(cells, np.ones((4, 8, 8), dtype=cells.dtype))
+
+
+def _batches(n, seed=0, shape=SHAPE):
+    """NCDHW (raw, (boundary, label) target) batches, as the confocal recipe feeds them."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        target = StandardLabelToBoundary(append_label=True)(_label(rs, shape)).astype(np.float32)
+        raw = (target[0] + 0.5 * rs.randn(*shape)).astype(np.float32)
+        out.append((raw[None, None], target[None]))
+    return out
+
+
+def _jax_step_fn(jax_model, tx):
+    criterion = jax_get_loss_criterion({"loss": dict(LOSS)})
+
+    @jax.jit
+    def step(params, opt_state, x, y):
+        def loss_fn(p):
+            _, logits = jax_model.module.apply({"params": p}, x, train=True)
+            return criterion(logits, y)
+
+        loss, grads = jax.value_and_grad(loss_fn)(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, grads
+
+    return step
+
+
+def _channels_last(batch):
+    return tuple(jnp.asarray(np.moveaxis(a, 1, -1)) for a in batch)
+
+
+def test_step_grads_match_jax_grad():
+    """Every parameter gradient of one BCEDiceLoss step within 1e-4 * max|g| of
+    `jax.grad`, max|g| over the whole step, and within 1e-3 of each tensor's
+    own max|g| (GroupNorm affines random).
+
+    The first GroupNorm's weight gradient is ~1e-3 of the largest: the
+    per-channel GroupNorm after the first conv cancels its scale everywhere but
+    at the volume's borders, so both frameworks' f32 values of it sit 4e-4 and
+    6e-4 from a float64 evaluation."""
+    cfg = {**MODEL, "num_levels": 3}
+    jax_model, variables = _jax_model_and_variables(cfg, seed=3)
+    raw, target = _batches(1, seed=3, shape=(16, 32, 32))[0]
+    step = _jax_step_fn(jax_model, optax.sgd(0.0))
+    *_, grads = step(variables["params"], optax.sgd(0.0).init(variables["params"]), *_channels_last((raw, target)))
+    want = state_dict_from_jax({"params": grads})
+
+    model = get_model(cfg).train()
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    get_loss_criterion({"loss": dict(LOSS)})(model(torch.from_numpy(raw))[1], torch.from_numpy(target)).backward()
+    grads_port = dict(model.named_parameters())
+    assert set(grads_port) == set(want)
+    g_max = max(np.abs(g.numpy()).max() for g in want.values())
+    for name, expected in want.items():
+        expected = expected.numpy()
+        got = grads_port[name].grad.numpy()
+        np.testing.assert_allclose(got, expected, rtol=0, atol=1e-4 * g_max, err_msg=name)
+        np.testing.assert_allclose(got, expected, rtol=0, atol=1e-3 * np.abs(expected).max(), err_msg=name)
+
+
+def _config(tmp, optimizer, **trainer):
+    return {"device": "cpu", "manual_seed": 0, "model": dict(MODEL), "loss": dict(LOSS),
+            "eval_metric": dict(EVAL_METRIC), "optimizer": optimizer,
+            "trainer": {"checkpoint_dir": str(tmp), "eval_score_higher_is_better": False,
+                        "validate_after_iters": 10**6, "log_after_iters": 10**6, "max_num_epochs": 1,
+                        "max_num_iterations": 100, **trainer}}
+
+
+def _trajectories(tmp, optimizer_config, n_steps=4):
+    """Per-step losses of the port's trainer and of the JAX step from the same
+    weights on the same batches."""
+    jax_model, variables = _jax_model_and_variables(MODEL, seed=1)
+    batches = _batches(n_steps, seed=1)
+    trainer = create_trainer(_config(tmp, optimizer_config), loaders={"train": batches, "val": []})
+    trainer.model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    port_losses = []
+    criterion = trainer.loss_criterion
+
+    def recording(logits, target):
+        loss = criterion(logits, target)
+        port_losses.append(loss.item())
+        return loss
+
+    trainer.loss_criterion = recording
+    trainer.fit()
+
+    tx = jax_optim.create_optimizer(optimizer_config)
+    params = variables["params"]
+    opt_state = tx.init(params)
+    step = _jax_step_fn(jax_model, tx)
+    jax_losses = []
+    for batch in batches:
+        params, opt_state, loss, _ = step(params, opt_state, *_channels_last(batch))
+        jax_losses.append(float(loss))
+    return port_losses, jax_losses
+
+
+def test_sgd_trajectory_matches_jax(tmp_path):
+    port, want = _trajectories(tmp_path, {"name": "SGD", "learning_rate": 0.05})
+    np.testing.assert_allclose(port, want, rtol=0, atol=1e-3)
+    assert port[-1] < port[0]
+
+
+def test_adam_weight_decay_trajectory_matches_jax(tmp_path):
+    port, want = _trajectories(tmp_path, {"learning_rate": 1e-3, "weight_decay": 1e-2})
+    np.testing.assert_allclose(port, want, rtol=0, atol=3e-3)
+
+
+@pytest.mark.parametrize("config", [
+    {"mode": "min", "factor": 0.5, "patience": 2},
+    {"mode": "min", "factor": 0.5, "patience": 1, "threshold": 0.05, "cooldown": 2, "min_lr": 2e-4},
+    {"mode": "max", "factor": 0.1, "patience": 0, "threshold": 0.01, "threshold_mode": "abs"},
+])
+def test_plateau_scheduler_lr_sequence_matches_jax(config):
+    scores = [1.0, 0.9, 0.95, 0.95, 0.95, 0.89, 0.9, 0.9, 0.9, 0.9, 0.91, 0.5, 0.6, 0.6, 0.7, 0.7, 0.7]
+    optimizer = torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=1e-3)
+    port = create_lr_scheduler({"name": "ReduceLROnPlateau", **config}, optimizer)
+    handle = jax_optim.OptimizerHandle(1e-3)
+    jax_sched = jax_optim.create_lr_scheduler({"name": "ReduceLROnPlateau", **config}, handle)
+    port_lrs, jax_lrs = [], []
+    for score in scores:
+        port.step(score)
+        jax_sched.step(score)
+        port_lrs.append(optimizer.param_groups[0]["lr"])
+        jax_lrs.append(handle.lr)
+    np.testing.assert_allclose(port_lrs, jax_lrs, rtol=1e-12)
+    assert len(set(port_lrs)) > 1
+
+
+@pytest.mark.parametrize("section,config,item", [
+    ("optimizer", {"name": "AdamW"}, "item 9"),
+    ("optimizer", {"name": "Adam", "mu_dtype": "bfloat16"}, "item 9"),
+    ("lr_scheduler", {"name": "StepLR", "step_size": 2}, "item 9"),
+])
+def test_unported_optimizers_and_schedulers_raise(section, config, item):
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(NotImplementedError, match=item):
+        if section == "optimizer":
+            create_optimizer(config, model)
+        else:
+            create_lr_scheduler(config, create_optimizer({}, model))
+
+
+def test_adam_is_the_default_with_l2_weight_decay():
+    optimizer = create_optimizer({"learning_rate": 2e-4, "weight_decay": 1e-5}, torch.nn.Linear(2, 2))
+    assert isinstance(optimizer, torch.optim.Adam)
+    group = optimizer.param_groups[0]
+    assert (group["lr"], group["weight_decay"], group["betas"]) == (2e-4, 1e-5, (0.9, 0.999))
+    assert not group.get("decoupled_weight_decay", False)
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("grad_accum_steps", 2, "item 9"), ("ema_decay", 0.99, "item 9"), ("resume", "auto", "item 9"),
+    ("profile_dir", "prof", "item 9"), ("log_params", True, "item 9"), ("spatial_sharding", True, "item 12"),
+])
+def test_unported_trainer_options_raise(tmp_path, option, value, item):
+    config = _config(tmp_path, {"learning_rate": 1e-3}, **{option: value})
+    with pytest.raises(NotImplementedError, match=item):
+        create_trainer(config, loaders={"train": [], "val": []})
+
+
+def test_checkpoint_is_atomic_and_refuses_jax_npz(tmp_path):
+    save_checkpoint({"num_iterations": 3, "model_state_dict": {"w": torch.ones(2)}}, True, str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["best_checkpoint.pytorch", "last_checkpoint.pytorch"]
+    assert load_checkpoint(tmp_path / "best_checkpoint.pytorch")["num_iterations"] == 3
+    from pytorch3dunet_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+
+    jax_dir = tmp_path / "jax"
+    jax_save_checkpoint({"num_iterations": 1, "model_state_dict": {"w": np.ones(2)}}, False, str(jax_dir))
+    with pytest.raises(ValueError, match="convert3dunet"):
+        load_checkpoint(jax_dir / "last_checkpoint.pytorch")
+    with pytest.raises(OSError):
+        load_checkpoint(tmp_path / "missing.pytorch")
+
+
+def _write_volume(path, seed, shape=CLI_PATCH):
+    rs = np.random.RandomState(seed)
+    label = _label(rs, shape)
+    raw = StandardLabelToBoundary()(label)[0] + 0.5 * rs.rand(*shape)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("raw", data=raw.astype(np.float32))
+        f.create_dataset("label", data=label.astype(np.int64))
+
+
+def _cli_config(tmp, **trainer):
+    phase = {"slice_builder": {"name": "SliceBuilder", "patch_shape": list(CLI_PATCH),
+                               "stride_shape": list(CLI_PATCH)},
+             "transformer": {"raw": [{"name": "Standardize"}, {"name": "ToTensor", "expand_dims": True}],
+                             "label": [{"name": "StandardLabelToBoundary", "append_label": True},
+                                       {"name": "ToTensor", "expand_dims": False}]}}
+    return {
+        "manual_seed": 0, "device": "cpu", "model": dict(MODEL), "loss": dict(LOSS),
+        "optimizer": {"learning_rate": 0.0002, "weight_decay": 1.0e-05}, "eval_metric": dict(EVAL_METRIC),
+        "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "min", "factor": 0.5, "patience": 30},
+        "trainer": {"tensorboard_formatter": {"skip_last_target": True}, "eval_score_higher_is_better": False,
+                    "checkpoint_dir": os.path.join(tmp, "checkpoints"), "resume": None, "pre_trained": None,
+                    "validate_after_iters": 2, "log_after_iters": 2, "max_num_epochs": 10,
+                    "max_num_iterations": 2, **trainer},
+        "loaders": {"dataset": "StandardHDF5Dataset", "num_workers": 1, "batch_size": 1,
+                    "raw_internal_path": "raw", "label_internal_path": "label",
+                    "train": {"file_paths": [os.path.join(tmp, "train.h5")], **phase},
+                    "val": {"file_paths": [os.path.join(tmp, "val.h5")], **phase}},
+    }
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """The train CLI in a fresh interpreter (3 iterations, a validation and a
+    checkpoint at iteration 2), which must not import jax."""
+    tmp = str(tmp_path_factory.mktemp("train"))
+    _write_volume(os.path.join(tmp, "train.h5"), 0)
+    _write_volume(os.path.join(tmp, "val.h5"), 1)
+    config_path = os.path.join(tmp, "train_config.yml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(_cli_config(tmp), f)
+    script = ("import runpy, sys\n"
+              f"sys.argv = ['train', '--config', {config_path!r}]\n"
+              "runpy.run_module('pytorch3dunet_tpu_torch.train', run_name='__main__')\n"
+              "assert 'jax' not in sys.modules, 'the port imported jax'\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp, env=env, capture_output=True, text=True,
+                          timeout=300)
+    return {"tmp": tmp, "proc": proc, "checkpoints": os.path.join(tmp, "checkpoints")}
+
+
+def test_train_cli_runs_without_jax_and_writes_checkpoints(cli_run):
+    assert cli_run["proc"].returncode == 0, cli_run["proc"].stderr[-4000:]
+    ckpt = cli_run["checkpoints"]
+    assert {"last_checkpoint.pytorch", "best_checkpoint.pytorch"} <= set(os.listdir(ckpt))
+    state = load_checkpoint(os.path.join(ckpt, "last_checkpoint.pytorch"))
+    assert set(state) == {"model_state_dict", "optimizer_state_dict", "num_epochs", "num_iterations",
+                          "best_eval_score"}
+    assert state["num_iterations"] == 3 and np.isfinite(state["best_eval_score"])
+    get_model(MODEL).load_state_dict(state["model_state_dict"], strict=True)
+    run_dirs = os.listdir(os.path.join(ckpt, "logs"))
+    assert any("train_config.yml" in os.listdir(os.path.join(ckpt, "logs", d)) for d in run_dirs)
+
+
+def test_train_cli_resume_continues_the_iterations(cli_run, tmp_path):
+    assert cli_run["proc"].returncode == 0, cli_run["proc"].stderr[-4000:]
+    resumed = os.path.join(str(tmp_path), "resumed")
+    os.makedirs(resumed)
+    src = os.path.join(cli_run["checkpoints"], "last_checkpoint.pytorch")
+    resume = os.path.join(resumed, "last_checkpoint.pytorch")
+    with open(src, "rb") as fin, open(resume, "wb") as fout:
+        fout.write(fin.read())
+    config = _cli_config(cli_run["tmp"], resume=resume, max_num_iterations=4)
+    config_path = os.path.join(str(tmp_path), "resume.yml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(config, f)
+    train.main(["--config", config_path])
+    state = load_checkpoint(resume)
+    # resumed at iteration 3; validation and save at iteration 4
+    assert state["num_iterations"] == 5
+    assert state["optimizer_state_dict"]["state"]
+
+
+def test_checkpoint_loads_in_jax_and_in_the_port_predict_cli(cli_run, tmp_path):
+    assert cli_run["proc"].returncode == 0, cli_run["proc"].stderr[-4000:]
+    from pytorch3dunet_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
+
+    best = os.path.join(cli_run["checkpoints"], "best_checkpoint.pytorch")
+    jax_state = jax_load_checkpoint(best)
+    assert "params" in jax_state["model_state_dict"]
+
+    transformer = {"raw": [{"name": "Standardize"}, {"name": "ToTensor", "expand_dims": True}]}
+    predict_run({
+        "device": "cpu", "model_path": best, "model": dict(MODEL), "predictor": {"name": "StandardPredictor"},
+        "loaders": {"dataset": "StandardHDF5Dataset", "output_dir": str(tmp_path), "batch_size": 1,
+                    "num_workers": 1, "raw_internal_path": "raw",
+                    "test": {"file_paths": [os.path.join(cli_run["tmp"], "val.h5")],
+                             "slice_builder": {"name": "SliceBuilder", "patch_shape": list(CLI_PATCH),
+                                               "stride_shape": list(CLI_PATCH)},
+                             "transformer": transformer}}})
+    with h5py.File(tmp_path / "val_predictions.h5", "r") as f:
+        probs = f["predictions"][:]
+    assert probs.shape == (1, 8, 64, 64) and np.isfinite(probs).all()
+
+
+def test_port_imports_no_jax_h5py_yaml_or_tensorboard():
+    # the card's machine has none of these: every module of the port imports
+    # them, if at all, inside the function that needs them
+    script = ("import importlib, pkgutil, sys\n"
+              "import pytorch3dunet_tpu_torch as port\n"
+              "for module in pkgutil.walk_packages(port.__path__, 'pytorch3dunet_tpu_torch.'):\n"
+              "    importlib.import_module(module.name)\n"
+              "print(sorted(set(sys.modules) & {'jax', 'flax', 'optax', 'h5py', 'yaml', 'tensorboardX'}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip() == "[]"
+
+
+def test_trainer_validates_saves_and_stops(tmp_path):
+    """Iterations counted from 1, validation every 2, stop after iteration
+    max_num_iterations + 1, best checkpoint on the lower ARand."""
+    batches = _batches(3, seed=5)
+    trainer = create_trainer(_config(tmp_path, {"learning_rate": 1e-3}, validate_after_iters=2,
+                                     max_num_iterations=3, max_num_epochs=5),
+                             loaders={"train": batches, "val": batches[:1]})
+    assert isinstance(trainer, UNetTrainer)
+    scores = []
+    validate = trainer.validate
+    trainer.validate = lambda: scores.append(validate()) or scores[-1]
+    trainer.fit()
+    assert trainer.num_iterations == 4 and len(scores) == 2
+    assert trainer.best_eval_score == min(scores)
+    assert load_checkpoint(tmp_path / "last_checkpoint.pytorch")["num_iterations"] == 5
+    assert not trainer.should_stop() or trainer.num_iterations > 3
