@@ -8,9 +8,9 @@ Phases, each fatal on failure:
   2. build: the hand-written kernels are compiled from csrc/ with nvcc, one
      nvcc per source, all at once;
   3. kernels vs plain: `conv3d_fwd` (K2) against `conv3d_fwd_reference` at
-     every 3x3x3 conv shape of the UNet3D forward below, and the packed-weight
-     kernel (K3) at every input-gradient shape of the training step below, in
-     float32 and bfloat16, and both at edge shapes;
+     every 3x3x3 conv shape of the UNet3D forward and train step below, and
+     the packed-weight kernel (K3) at every input-gradient shape of the
+     training step, in float32 and bfloat16, and both at edge shapes;
   4. predict path: sliding-window prediction with the UNet3D of
      resources/3DUnet_confocal_boundary/test_config.yml at full width (seeded
      random weights, synthetic volume, 4 patches of 112x234x234 with halo);
@@ -32,15 +32,42 @@ Phases, each fatal on failure:
      (TF32 off and on), voxels/s and peak memory;
   9. profile: one train step's device time by kernel (torch.profiler) and the
      device's busy share.
+Phases 1-9 run with P3DUNET_TAPFOLD unset: every conv forward is K2. Phases
+11-14 set P3DUNET_TAPFOLD=1, under which every conv with F >= 64 runs its
+forward on the im2col kernel (K1), and unset it after:
+ 10. kernels vs plain at the ResidualUNet3D's shapes: `conv3d_fwd(variant="im2col")`
+     (K1) against `conv3d_fwd_reference` at every K1 shape of the prediction
+     and training patches and at the edge shapes, K2 at the model's other conv
+     shapes of both patches, and `conv3d_input_grad` (K3) against its plain
+     version at all 18 input-gradient shapes of its train step, in float32 and
+     bfloat16;
+ 11. ResidualUNet3D predict path: the model of
+     resources/3DUnet_lightsheet_boundary/test_config.yml at full width (seeded
+     random weights) on the same synthetic volume and patches as phase 4;
+     checks 14 K1 + 4 K2 launches per forward, the output, and one patch
+     against the plain conv;
+ 12. ResidualUNetSE3D: one full-width forward of one patch, checked the same way;
+ 13. ResidualUNet3D train path: the loss, optimizer, eval_metric and
+     lr_scheduler of resources/3DUnet_lightsheet_boundary/train_config.yml, 4
+     Adam steps on the synthetic 80x170x170 batch and 1 validation; checks 18
+     K3 launches per step and 14 K1 + 4 K2 per forward, the falling loss, and
+     one step's gradients against a float64 step with the plain conv, beside
+     the plain conv's own float32 step, and against that f32 step;
+ 14. times: K1 per shape against K2 at the same shape and cuDNN (TF32 off and
+     on), the patch forward, predict_array, a train step with peak memory, and
+     one forward's device time by kernel (torch.profiler).
 TF32 is off for every comparison and every "plain" time unless a line says
-"TF32". The line before the last is a JSON object describing the kernels; the
-last line is {"ok": true, "device": {...}}.
+"TF32". The line before the last is a JSON object describing the kernels (time,
+launches, error, and the bound: the larger of FLOPs at the H100's 67 TFLOP/s
+f32 peak and bytes at its 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
 
-Needs torch and numpy, scipy (the reused host tier); not jax, h5py or yaml.
+Needs torch, numpy and scipy; not jax, h5py or yaml, and nothing of the JAX package.
 """
 
+import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -76,11 +103,29 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 FORWARD_TOL = 1e-3  # probabilities of one patch, kernel forward vs plain forward
 BACKWARD_TOL = 1e-4  # dx, dw, db of one conv, relative to max |autograd's|
 GRAD_TOL = 1e-3  # parameter gradients of one train step, relative to max |plain step's| per tensor
+# ResidualUNet3D step grads, each against a float64 plain step on the card, per
+# tensor relative to its max |g|: the kernels' error may exceed twice the plain
+# f32 step's own error by RES_GRAD_TOL. The per-tensor bound above does not
+# hold there: its deep-level tensors (max |g| down to 1e-6 of the step's) carry
+# f32 errors of 2e-3 to 3e-3 in both paths, and the plain step differs from
+# itself by 1e-3 between two runs (cuDNN's weight gradient). RES_VS_PLAIN_CAP
+# caps the kernels' step against the plain f32 step per tensor, so that a noisy
+# plain step cannot widen the first bound without limit
+RES_GRAD_TOL, RES_VS_PLAIN_CAP = 1e-3, 1e-2
 # (N, D, H, W, C, F, bias): C = 1, F = 3, D = 1 and 2, odd H and W, N = 2, F
 # above one feature block, C above one channel chunk, no bias
 EDGE_CASES = [(1, 5, 7, 9, 1, 16, True), (1, 2, 11, 13, 3, 3, True), (2, 4, 9, 31, 32, 64, True),
               (1, 3, 5, 37, 20, 40, False), (1, 1, 1, 1, 8, 8, True), (2, 3, 17, 33, 130, 70, False)]
 RUNS = 5
+# the model section of resources/3DUnet_lightsheet_boundary/test_config.yml and
+# train_config.yml (its patch, halo, loss, optimizer and eval_metric are the
+# confocal recipe's), and its lr_scheduler
+RES_MODEL = {"name": "ResidualUNet3D", "in_channels": 1, "out_channels": 1, "layer_order": "gcr", "f_maps": 32,
+             "num_groups": 8, "final_sigmoid": True}
+RES_LR_SCHEDULER = {"name": "ReduceLROnPlateau", "mode": "min", "factor": 0.2, "patience": 20}
+RES_TRAIN_STEPS, RES_VALIDATE_AFTER = 4, 4
+# H100 SXM peaks (NVIDIA's data sheet): f32 on the CUDA cores, HBM bandwidth
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 
 
 def log(msg):
@@ -146,12 +191,12 @@ def path_conv_shapes(model, patch_in):
     return shapes
 
 
-def dgrad_shapes(model, patch):
+def dgrad_shapes(model, patch, layer_order=MODEL["layer_order"]):
     """(module name, NDHWC dy shape, C) of every input gradient that one train
     step on `patch` computes: every 3x3x3 conv but one that reads the raw patch
     itself. With layer_order 'gcr' there is none such: the first conv reads the
     output of a GroupNorm whose affine parameters need its input gradient."""
-    first_reads_raw = MODEL["layer_order"][0] == "c"
+    first_reads_raw = layer_order[0] == "c"
     return [(name, (*shape[:4], f), shape[4]) for i, (name, shape, f) in enumerate(path_conv_shapes(model, patch))
             if not (i == 0 and first_reads_raw)]
 
@@ -165,7 +210,32 @@ def randomize_group_norms(model, gen):
                 module.bias.copy_(torch.rand(module.bias.shape, generator=gen) * 0.4 - 0.2)
 
 
-def check_kernel(tag, fn, ref, cases, gen, device):
+def conv_bound(shape, c_out, bias=True, itemsize=4):
+    """(ms, bound_by) of the least time the card could take for one 3x3x3
+    conv: FLOPs at the f32 peak or bytes (x, w, b read once, y written once)
+    at the HBM rate, whichever is larger."""
+    voxels, c_in = int(np.prod(shape[:4])), shape[4]
+    ops_ms = 2 * 27 * voxels * c_in * c_out / F32_FLOPS * 1e3
+    bytes_ms = itemsize * (voxels * (c_in + c_out) + 27 * c_in * c_out + (c_out if bias else 0)) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def summed_bound(rows):
+    """Sum of `conv_bound` over (shape, c_out, bias) rows, and what bounds most of it."""
+    bounds = [conv_bound(*row) for row in rows]
+    by_ops = sum(ms for ms, by in bounds if by == "operations")
+    total = sum(ms for ms, _ in bounds)
+    return total, "operations" if by_ops >= total / 2 else "bytes"
+
+
+def library_conv(x, w, b):
+    """One cuDNN call for the same function: F.conv3d on the NCDHW views."""
+    import torch.nn.functional as F
+
+    return F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, padding=1)
+
+
+def check_kernel(tag, fn, ref, cases, gen, device, phase=3):
     """fn against ref on every (name, shape, c_out, bias) case, in f32 and bf16;
     returns the largest error of the non-edge cases per dtype and the failures."""
     errors = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -184,13 +254,13 @@ def check_kernel(tag, fn, ref, cases, gen, device):
                 ok = got.shape == want.shape and got.dtype == dtype and err <= tol
                 if not ok:
                     failed.append((name, shape, f, dtype))
-                log(f"[3 {tag}] {name:42s} x{shape} F={f:<3d} {str(dtype)[6:]:8s} bias={bias!s:5s} "
+                log(f"[{phase} {tag}] {name:42s} x{shape} F={f:<3d} {str(dtype)[6:]:8s} bias={bias!s:5s} "
                     f"max|d|={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
                 del x, w, b, got, want
     return errors, failed
 
 
-def profile_step(step, step_ms, top=12):
+def profile_step(step, step_ms, top=12, tag="9 profile", what="one train step"):
     """Device time of one call of `step` under torch.profiler, summed by
     kernel name: the hand-written kernels, then the largest others, and the
     device's busy share of `step_ms` (the step's CUDA-event time)."""
@@ -208,14 +278,262 @@ def profile_step(step, step_ms, top=12):
             by_name[event.name] = by_name.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     if not busy_ms:
-        log("[9 profile] the profiler recorded no device time")
+        log(f"[{tag}] the profiler recorded no device time")
         return
-    log(f"[9 profile] one train step: device busy {busy_ms:.2f} ms of {step_ms:.2f} ms "
+    log(f"[{tag}] {what}: device busy {busy_ms:.2f} ms of {step_ms:.2f} ms "
         f"({100 * busy_ms / step_ms:.1f}% busy) in {len(by_name)} kernel names")
-    ours = [name for name in by_name if "conv3d_fwd_kernel" in name or "conv3d_packw_kernel" in name]
+    ours = [name for name in by_name if any(k in name for k in ("conv3d_fwd_kernel", "conv3d_packw_kernel",
+                                                                  "conv3d_im2col_kernel"))]
     others = sorted((name for name in by_name if name not in ours), key=by_name.get, reverse=True)
     for name in ours + others[:top]:
-        log(f"[9 profile] {by_name[name]:9.2f} ms {100 * by_name[name] / busy_ms:5.1f}%  {name[:110]}")
+        log(f"[{tag}] {by_name[name]:9.2f} ms {100 * by_name[name] / busy_ms:5.1f}%  {name[:110]}")
+
+
+def residual_unet_phases(device, gen, volume, batches):
+    """Phases 10-14: K1 against its plain version, then ResidualUNet3D predict
+    and train (and one ResidualUNetSE3D forward) at full width with
+    P3DUNET_TAPFOLD=1, and their times. Returns what the kernels line needs."""
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops import conv3d
+    from pytorch3dunet_tpu_torch.ops.conv3d import (conv3d_fwd, conv3d_fwd_reference, conv3d_input_grad,
+                                                    conv3d_input_grad_reference, plain_conv)
+    from pytorch3dunet_tpu_torch.predictor import StandardPredictor
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+
+    patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+    torch.manual_seed(SEED)
+    model = get_model(RES_MODEL)
+    shapes = path_conv_shapes(model, patch_in)
+    k1_shapes = [(name, shape, f) for name, shape, f in shapes if f >= 64]
+    k2_shapes = [(name, shape, f) for name, shape, f in shapes if f < 64]
+    train_shapes = path_conv_shapes(model, TRAIN_PATCH)
+    train_k1 = [(name, shape, f) for name, shape, f in train_shapes if f >= 64]
+    train_k2 = [(name, shape, f) for name, shape, f in train_shapes if f < 64]
+    dgrads = dgrad_shapes(model, TRAIN_PATCH, RES_MODEL["layer_order"])
+    check((len(shapes), len(k1_shapes), len(dgrads)) == (18, 14, 18),
+          f"ResidualUNet3D has {len(shapes)} convs, {len(k1_shapes)} K1, {len(dgrads)} input gradients")
+
+    # 10. the kernels against their plain versions at this model's shapes
+    edges = [(f"edge{i}", case[:5], case[5], case[6]) for i, case in enumerate(EDGE_CASES)]
+    cases = [(f"predict {name}", shape, f, True) for name, shape, f in k1_shapes]
+    cases += [(f"train {name}", shape, f, True) for name, shape, f in train_k1]
+    errors, failed = check_kernel("K1", lambda x, w, b: conv3d_fwd(x, w, b, variant="im2col"), conv3d_fwd_reference,
+                                  cases + edges, gen, device, phase=10)
+    check(not failed, f"K1 disagrees with the plain version: {failed}")
+    cases = [(f"predict {name}", shape, f, True) for name, shape, f in k2_shapes]
+    cases += [(f"train {name}", shape, f, True) for name, shape, f in train_k2]
+    errors_k2, failed = check_kernel("K2", lambda x, w, b: conv3d_fwd(x, w, b, variant="roll"),
+                                     conv3d_fwd_reference, cases, gen, device, phase=10)
+    check(not failed, f"K2 disagrees with the plain version: {failed}")
+    # the wrapper the train step calls: dy (N, D, H, W, F) and the forward's w
+    # (3, 3, 3, C, F); conv_inputs draws w as (3, 3, 3, F, C)
+    errors_k3, failed = check_kernel("K3", lambda dy, w, _: conv3d_input_grad(dy, w.transpose(3, 4)),
+                                     lambda dy, w, _: conv3d_input_grad_reference(dy, w.transpose(3, 4)),
+                                     [(f"dgrad {name}", shape, c, False) for name, shape, c in dgrads], gen, device,
+                                     phase=10)
+    check(not failed, f"conv3d_input_grad (K3) disagrees with its plain version: {failed}")
+
+    os.environ["P3DUNET_TAPFOLD"] = "1"
+    try:
+        # 11. ResidualUNet3D predict path at full width
+        randomize_group_norms(model, torch.Generator().manual_seed(SEED))
+        model = model.to(device).eval()
+        predictor = StandardPredictor(model, None, RES_MODEL["out_channels"], device)
+        patches = list(predictor.patches(volume, PATCH, STRIDE, HALO, TRANSFORMER))
+        per_forward = {"conv3d_fwd": len(k2_shapes), "conv3d_packw": 0, "conv3d_im2col": len(k1_shapes)}
+        reset_launches()
+        start = time.perf_counter()
+        out = predictor.predict_array(volume, PATCH, STRIDE, HALO, TRANSFORMER)
+        first_s = time.perf_counter() - start
+        predict_launches = dict(conv3d.launches)
+        expected = {k: v * len(patches) for k, v in per_forward.items()}
+        log(f"[11 resunet predict] predict_array {VOLUME} -> {out.shape} in {first_s:.2f} s (first call); "
+            f"{len(patches)} patches of {patch_in}, launches {predict_launches} (expected {expected})")
+        check(predict_launches == expected, f"ResidualUNet3D predict launched {predict_launches}, expected {expected}")
+        check(out.shape == (RES_MODEL["out_channels"], *VOLUME), f"output shape {out.shape}")
+        check(np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1, f"output in [{out.min()}, {out.max()}]")
+        x0 = torch.from_numpy(patches[0][0][None]).to(device)
+        with torch.inference_mode():
+            probs = model(x0)[0]
+            with plain_conv():
+                probs_plain = model(x0)[0]
+        err = (probs - probs_plain).abs().max().item()
+        log(f"[11 resunet predict] patch 0: kernel vs plain forward max|d| = {err:.3e} (tol {FORWARD_TOL}); "
+            f"probs in [{out.min():.4f}, {out.max():.4f}], mean {out.mean():.4f}")
+        check(err <= FORWARD_TOL, f"ResidualUNet3D forward differs from the plain forward by {err}")
+        del probs, probs_plain
+
+        # 12. ResidualUNetSE3D, one full-width forward
+        torch.manual_seed(SEED)
+        se_model = get_model({**RES_MODEL, "name": "ResidualUNetSE3D"})
+        randomize_group_norms(se_model, torch.Generator().manual_seed(SEED))
+        se_model = se_model.to(device).eval()
+        reset_launches()
+        with torch.inference_mode():
+            se_probs = se_model(x0)[0]
+            se_launches = dict(conv3d.launches)
+            with plain_conv():
+                se_plain = se_model(x0)[0]
+        err = (se_probs - se_plain).abs().max().item()
+        finite = bool(torch.isfinite(se_probs).all()) and 0 <= se_probs.min().item() <= se_probs.max().item() <= 1
+        log(f"[12 resunet-se] one {patch_in} forward: launches {se_launches} (expected {per_forward}); "
+            f"kernel vs plain max|d| = {err:.3e} (tol {FORWARD_TOL}); finite in [0, 1]: {finite}")
+        check(se_launches == per_forward, f"ResidualUNetSE3D launched {se_launches}, expected {per_forward}")
+        check(finite and err <= FORWARD_TOL, f"ResidualUNetSE3D forward: finite {finite}, max|d| {err}")
+        del se_model, se_probs, se_plain
+
+        # 13. ResidualUNet3D train path at full width
+        train_batch, val_batch = batches
+        losses = []
+        with tempfile.TemporaryDirectory() as checkpoint_dir:
+            config = {"manual_seed": SEED, "device": "cuda", "model": dict(RES_MODEL), **TRAIN_SECTIONS,
+                      "lr_scheduler": dict(RES_LR_SCHEDULER),
+                      "trainer": {"eval_score_higher_is_better": False, "checkpoint_dir": checkpoint_dir,
+                                  "validate_after_iters": RES_VALIDATE_AFTER, "log_after_iters": 10**9,
+                                  "max_num_epochs": 10**9, "max_num_iterations": RES_TRAIN_STEPS - 1}}
+            trainer = create_trainer(config, loaders={"train": [train_batch], "val": [val_batch]})
+            criterion = trainer.loss_criterion
+
+            def recording_criterion(logits, target):
+                loss = criterion(logits, target)
+                if torch.is_grad_enabled():
+                    losses.append(loss.item())
+                return loss
+
+            trainer.loss_criterion = recording_criterion
+            reset_launches()
+            start = time.perf_counter()
+            trainer.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - start
+            train_launches = dict(conv3d.launches)
+            trainer.loss_criterion = criterion
+        n_val = RES_TRAIN_STEPS // RES_VALIDATE_AFTER
+        expected = {"conv3d_fwd": len(k2_shapes) * (RES_TRAIN_STEPS + n_val),
+                    "conv3d_im2col": len(k1_shapes) * (RES_TRAIN_STEPS + n_val),
+                    "conv3d_packw": len(shapes) * RES_TRAIN_STEPS}
+        log(f"[13 resunet train] fit: {RES_TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validation in {fit_s:.2f} s; "
+            f"launches {train_launches} (expected {expected}); losses {', '.join(f'{v:.5f}' for v in losses)}; "
+            f"best val ARand {trainer.best_eval_score:.5f}")
+        check(train_launches == expected, f"ResidualUNet3D train launched {train_launches}, expected {expected}")
+        check(len(losses) == RES_TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
+        check(losses[-1] < losses[0], f"ResidualUNet3D loss did not fall: {losses}")
+
+        train_model, optimizer = trainer.model, trainer.optimizer
+        inp = torch.from_numpy(train_batch[0]).to(device)
+        target = torch.from_numpy(train_batch[1]).to(device)
+        randomize_group_norms(train_model, torch.Generator().manual_seed(SEED + 1))
+
+        def step_grads(m, dtype):
+            m.zero_grad(set_to_none=True)
+            criterion(m(inp.to(dtype))[1], target.to(dtype)).backward()
+            return {name: p.grad.detach().double() for name, p in m.named_parameters()}
+
+        grads = step_grads(train_model, torch.float32)
+        with plain_conv():
+            grads_plain = step_grads(train_model, torch.float32)
+            grads_plain_again = step_grads(train_model, torch.float32)
+            grads64 = step_grads(copy.deepcopy(train_model).double(), torch.float64)
+
+        def rel(a, b):
+            return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+        err_k = {k: rel(g, grads64[k]) for k, g in grads.items()}
+        err_p = {k: rel(g, grads64[k]) for k, g in grads_plain.items()}
+        vs_plain = max((rel(g, grads_plain[k]), k) for k, g in grads.items())
+        plain_repeat = max((rel(g, grads_plain[k]), k) for k, g in grads_plain_again.items())
+        margin = min((2 * err_p[k] + RES_GRAD_TOL - err_k[k], k) for k in grads)
+        log(f"[13 resunet train] one step's parameter grads against a float64 plain step: kernels worst "
+            f"{max(err_k.values()):.3e} ({max(err_k, key=err_k.get)}), plain f32 worst {max(err_p.values()):.3e} "
+            f"({max(err_p, key=err_p.get)}); kernels vs plain f32 worst {vs_plain[0]:.3e} ({vs_plain[1]}, "
+            f"cap {RES_VS_PLAIN_CAP}); plain f32 vs itself worst {plain_repeat[0]:.3e} ({plain_repeat[1]}); "
+            f"least margin to 2 x plain + {RES_GRAD_TOL}: {margin[0]:.3e} ({margin[1]}) over {len(grads)} tensors")
+        check(all(math.isfinite(v) for v in err_k.values()), "ResidualUNet3D train-step grads are not finite")
+        check(margin[0] >= 0, f"ResidualUNet3D train-step grads: kernels {err_k[margin[1]]} vs plain f32 "
+                              f"{err_p[margin[1]]} from float64 at {margin[1]}")
+        check(vs_plain[0] <= RES_VS_PLAIN_CAP, f"ResidualUNet3D train-step grads differ from the plain f32 step by "
+                                               f"{vs_plain[0]} (cap {RES_VS_PLAIN_CAP}) at {vs_plain[1]}")
+        del grads, grads_plain, grads_plain_again, grads64
+
+        # 14. times: K1 per shape, the patch forward, predict_array
+        k1_times = []
+        with torch.inference_mode():
+            for name, shape, f in k1_shapes:
+                x, w, b = conv_inputs(shape, f, torch.float32, True, gen, device)
+                row = {"conv": name, "x": shape, "F": f,
+                       "k1_ms": timed_ms(lambda: conv3d_fwd(x, w, b, variant="im2col")),
+                       "k2_ms": timed_ms(lambda: conv3d_fwd(x, w, b, variant="roll")),
+                       "plain_ms": timed_ms(lambda: conv3d_fwd_reference(x, w, b)),
+                       "plain_tf32_ms": with_tf32(lambda: timed_ms(lambda: conv3d_fwd_reference(x, w, b))),
+                       "library_ms": timed_ms(lambda: library_conv(x, w, b)),
+                       "library_tf32_ms": with_tf32(lambda: timed_ms(lambda: library_conv(x, w, b)))}
+                xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+                row["k1_bf16_ms"] = timed_ms(lambda: conv3d_fwd(xb, wb, bb, variant="im2col"))
+                row["bound_ms"] = conv_bound(shape, f)[0]
+                row["k1_tflops"] = 2 * 27 * np.prod(shape) * f / row["k1_ms"] / 1e9
+                k1_times.append(row)
+                log(f"[14 K1] {name:42s} x{shape} F={f:<3d} K1 {row['k1_ms']:.3f} ms ({row['k1_tflops']:.1f} "
+                    f"TFLOP/s, bound {row['bound_ms']:.3f}) | K2 {row['k2_ms']:.3f} | cuDNN F.conv3d "
+                    f"{row['library_ms']:.3f}, TF32 {row['library_tf32_ms']:.3f} | plain {row['plain_ms']:.3f}, "
+                    f"TF32 {row['plain_tf32_ms']:.3f} | K1 bf16 {row['k1_bf16_ms']:.3f} ms")
+                del x, w, b, xb, wb, bb
+            sums = {key: sum(r[key] for r in k1_times) for key in k1_times[0] if key.endswith("_ms")}
+            tflop = sum(2 * 27 * np.prod(s) * f for _, s, f in k1_shapes) / 1e12
+            log(f"[14 K1] all {len(k1_times)} K1 convs of one forward ({tflop:.3f} TFLOP): K1 {sums['k1_ms']:.2f} ms | "
+                f"bound {sums['bound_ms']:.2f} | K2 {sums['k2_ms']:.2f} | cuDNN {sums['library_ms']:.2f}, TF32 "
+                f"{sums['library_tf32_ms']:.2f} | plain {sums['plain_ms']:.2f}, TF32 {sums['plain_tf32_ms']:.2f} | "
+                f"K1 bf16 {sums['k1_bf16_ms']:.2f} ms")
+
+            torch.cuda.reset_peak_memory_stats()
+            fwd_ms = timed_ms(lambda: model(x0))
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            with plain_conv():
+                fwd_plain_ms = timed_ms(lambda: model(x0))
+                fwd_plain_tf32_ms = with_tf32(lambda: timed_ms(lambda: model(x0)))
+        log(f"[14 resunet forward] one {patch_in} patch: kernels {fwd_ms:.2f} ms | plain conv {fwd_plain_ms:.2f} ms | "
+            f"plain conv TF32 {fwd_plain_tf32_ms:.2f} ms | peak memory {peak_gib:.2f} GiB")
+        walls = []
+        for _ in range(RUNS):
+            start = time.perf_counter()
+            predictor.predict_array(volume, PATCH, STRIDE, HALO, TRANSFORMER)
+            walls.append(time.perf_counter() - start)
+        wall = statistics.median(walls)
+        log(f"[14 resunet predict] predict_array {VOLUME}: median {wall:.3f} s of {RUNS} -> "
+            f"{np.prod(VOLUME) / wall / 1e6:.3f} Mvoxel/s (runs: {', '.join(f'{t:.3f}' for t in walls)})")
+
+        def forward():
+            with torch.inference_mode():
+                model(x0)
+
+        profile_step(forward, fwd_ms, tag="14 resunet profile", what="one ResidualUNet3D patch forward")
+        del model, predictor, x0
+        torch.cuda.empty_cache()
+
+        def train_step():
+            optimizer.zero_grad(set_to_none=True)
+            criterion(train_model(inp)[1], target).backward()
+            optimizer.step()
+
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = timed_ms(train_step)
+        step_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        with plain_conv():
+            step_plain_ms = timed_ms(train_step)
+            step_plain_tf32_ms = with_tf32(lambda: timed_ms(train_step))
+        voxels = np.prod(TRAIN_PATCH)
+        log(f"[14 resunet train step] {TRAIN_PATCH} batch 1, forward + backward + Adam: kernels {step_ms:.2f} ms "
+            f"({voxels / step_ms / 1e3:.3f} Mvoxel/s) | plain conv {step_plain_ms:.2f} ms | plain conv TF32 "
+            f"{step_plain_tf32_ms:.2f} ms | peak memory {step_peak_gib:.2f} GiB")
+        profile_step(train_step, step_ms, tag="14 resunet profile", what="one ResidualUNet3D train step")
+        del train_model, optimizer, trainer, inp, target
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("P3DUNET_TAPFOLD", None)
+
+    return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "predict_launches": predict_launches, "train_launches": train_launches,
+            "k1_ms": sums["k1_ms"], "k1_plain_ms": sums["plain_ms"], "k1_plain_tf32_ms": sums["plain_tf32_ms"],
+            "k1_library_ms": sums["library_ms"], "k2_same_ms": sums["k2_ms"], "k1_count": len(k1_times),
+            "k1_bound": summed_bound([(shape, f, True) for _, shape, f in k1_shapes])}
 
 
 def synthetic_batch(rs):
@@ -256,6 +574,8 @@ def main():
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # phases 1-9 run the default forward (K2); phases 11-14 set the switch
+    os.environ.pop("P3DUNET_TAPFOLD", None)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -283,8 +603,9 @@ def main():
     train_dgrads = dgrad_shapes(model, TRAIN_PATCH)
     gen = torch.Generator(device=device).manual_seed(SEED)
     edges = [(f"edge{i}", case[:5], case[5], case[6]) for i, case in enumerate(EDGE_CASES)]
-    errors, failed = check_kernel("K2", conv3d_fwd, conv3d_fwd_reference,
-                                  [(name, shape, f, True) for name, shape, f in shapes] + edges, gen, device)
+    k2_cases = [(name, shape, f, True) for name, shape, f in shapes]
+    k2_cases += [(f"train {name}", shape, f, True) for name, shape, f in path_conv_shapes(model, TRAIN_PATCH)]
+    errors, failed = check_kernel("K2", conv3d_fwd, conv3d_fwd_reference, k2_cases + edges, gen, device)
     check(not failed, f"K2 disagrees with the plain version: {failed}")
     dgrad_cases = [(f"dgrad {name}", shape, c, False) for name, shape, c in train_dgrads]
     errors_k3, failed = check_kernel("K3", lambda x, w, b: conv3d_fwd(x, w, b, variant="packw"),
@@ -309,8 +630,8 @@ def main():
     predict_launches = dict(conv3d.launches)
     log(f"[4 predict] predict_array {VOLUME} -> {out.shape} in {first_s:.2f} s (first call); "
         f"{len(patches)} patches of {patch_in}, launches {predict_launches} (expected conv3d_fwd "
-        f"{n_conv} x {len(patches)}, conv3d_packw 0)")
-    check(predict_launches == {"conv3d_fwd": n_conv * len(patches), "conv3d_packw": 0},
+        f"{n_conv} x {len(patches)}, conv3d_packw 0, conv3d_im2col 0)")
+    check(predict_launches == {"conv3d_fwd": n_conv * len(patches), "conv3d_packw": 0, "conv3d_im2col": 0},
           f"predict launched {predict_launches}")
     check(out.shape == (MODEL["out_channels"], *VOLUME), f"output shape {out.shape}")
     check(np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1, f"output in [{out.min()}, {out.max()}]")
@@ -340,6 +661,7 @@ def main():
             row["kernel_ms"] = timed_ms(lambda: conv3d_fwd(x, w, b))
             row["plain_ms"] = timed_ms(lambda: conv3d_fwd_reference(x, w, b))
             row["plain_tf32_ms"] = with_tf32(lambda: timed_ms(lambda: conv3d_fwd_reference(x, w, b)))
+            row["library_ms"] = timed_ms(lambda: library_conv(x, w, b))
             xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
             row["kernel_bf16_ms"] = timed_ms(lambda: conv3d_fwd(xb, wb, bb))
             flop = 2 * 27 * np.prod(shape) * f
@@ -426,7 +748,8 @@ def main():
         trainer.loss_criterion = criterion
         n_val = TRAIN_STEPS // VALIDATE_AFTER
         n_dgrad = len(train_dgrads)
-        expected = {"conv3d_fwd": n_conv * (TRAIN_STEPS + n_val), "conv3d_packw": n_dgrad * TRAIN_STEPS}
+        expected = {"conv3d_fwd": n_conv * (TRAIN_STEPS + n_val), "conv3d_packw": n_dgrad * TRAIN_STEPS,
+                    "conv3d_im2col": 0}
         log(f"[7 train] fit: {TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validations in {fit_s:.2f} s; "
             f"launches {train_launches} (expected {expected}); dy layout copies per step "
             f"{grad_copies / TRAIN_STEPS:.1f}; losses {', '.join(f'{v:.5f}' for v in losses)}; "
@@ -475,6 +798,7 @@ def main():
             x_size = (shape[0], c, *shape[1:4])
             row = {"conv": name, "dy": shape, "C": c,
                    "kernel_ms": timed_ms(lambda: conv3d_input_grad(dy, w)),
+                   "reference_ms": timed_ms(lambda: conv3d_input_grad_reference(dy, w)),
                    "plain_ms": timed_ms(lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)),
                    "plain_tf32_ms": with_tf32(lambda: timed_ms(
                        lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)))}
@@ -532,19 +856,40 @@ def main():
 
     # 9. where the time of one train step goes, by device kernel
     profile_step(train_step, step_ms)
+    del model, optimizer, trainer, inp, target
+    torch.cuda.empty_cache()
 
+    # 10-14. ResidualUNet3D with K1 under P3DUNET_TAPFOLD=1
+    res = residual_unet_phases(device, gen, volume, (train_batch, val_batch))
+
+    unet_paths = {"predict": predict_launches, "train": train_launches}
+    paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"]}
+    k2_bound = summed_bound([(shape, f, True) for _, shape, f in shapes])
+    k3_bound = summed_bound([(shape, c, False) for _, shape, c in train_dgrads])
     kernels = [
         {"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
-         "launches_by_path": {"predict": predict_launches["conv3d_fwd"], "train": train_launches["conv3d_fwd"]},
-         "max_abs_err": errors[torch.float32], "max_abs_err_bf16": errors[torch.bfloat16],
-         "ms": conv_ms, "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "shapes": n_conv},
+         "launches_by_path": {path: counts["conv3d_fwd"] for path, counts in paths.items()},
+         "max_abs_err": max(errors[torch.float32], res["errors_k2"][torch.float32]),
+         "max_abs_err_bf16": max(errors[torch.bfloat16], res["errors_k2"][torch.bfloat16]), "ms": conv_ms, "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": sum(r["library_ms"] for r in times), "shapes": n_conv,
+         "work": "the 14 conv forwards of one UNet3D 112x234x234 patch, f32"},
         {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
-         "launches_by_path": {"predict": predict_launches["conv3d_packw"],
-                              "train": train_launches["conv3d_packw"]},
-         "max_abs_err": errors_k3[torch.float32], "max_abs_err_bf16": errors_k3[torch.bfloat16],
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "plain_tf32_ms": k3_plain_tf32_ms, "shapes": len(train_dgrads)},
+         "launches_by_path": {path: counts["conv3d_packw"] for path, counts in paths.items()},
+         "max_abs_err": max(errors_k3[torch.float32], res["errors_k3"][torch.float32]),
+         "max_abs_err_bf16": max(errors_k3[torch.bfloat16], res["errors_k3"][torch.bfloat16]),
+         "ms": k3_ms, "plain_ms": sum(r["reference_ms"] for r in dgrad_times), "plain_tf32_ms": k3_plain_tf32_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": k3_plain_ms, "shapes": len(train_dgrads),
+         "work": "the 14 input gradients of one UNet3D 80x170x170 train step, f32"},
+        {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
+         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
+         "launches_by_path": {path: counts["conv3d_im2col"] for path, counts in paths.items()},
+         "max_abs_err": res["errors"][torch.float32], "max_abs_err_bf16": res["errors"][torch.bfloat16],
+         "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"], "plain_tf32_ms": res["k1_plain_tf32_ms"],
+         "bound_ms": res["k1_bound"][0], "bound_by": res["k1_bound"][1], "library_ms": res["k1_library_ms"],
+         "k2_same_shapes_ms": res["k2_same_ms"], "shapes": res["k1_count"],
+         "work": "the 14 K1 conv forwards of one ResidualUNet3D 112x234x234 patch, f32"},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,16 @@
 """Config loading for the port: YAML, the dotted CLI overrides of
 pytorch3dunet_tpu/config.py, and the torch device.
 
-`device: cuda | cpu`. Without the key the device is autodetected and logged.
-An explicit `cuda` without a CUDA device raises: the port never runs on the CPU
-in its place. The legacy values `tpu` and `mps` are mapped to the autodetected
-device with a warning, as the JAX package maps `cuda`.
+`device: cuda | cpu`. The port runs on the card unless the config says
+`device: cpu`: without the key, and for the legacy values `tpu` and `mps`, it
+takes `cuda` when a CUDA device is present and raises, naming `device: cpu`,
+when none is. An explicit `cuda` without a CUDA device raises too.
+
+On CUDA the port computes in float32: `resolve_device` turns cuDNN's and
+cuBLAS's TF32 off (`use_float32_math`), so the convolutions and matrix products
+that run outside the hand-written kernels (the 1x1 final conv, the weight
+gradient, the deconv, the SE layers) give the numbers the JAX package and
+chip_smoke.py check, not TF32's.
 """
 
 import argparse
@@ -13,7 +19,7 @@ import shutil
 
 import torch
 
-from pytorch3dunet_tpu.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("ConfigLoader")
 
@@ -30,28 +36,42 @@ _CLI_OVERRIDES = (
 )
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def use_float32_math():
+    """Full float32 in cuDNN convolutions and cuBLAS matrix products (PyTorch
+    lets cuDNN use TF32 by default)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _default_cuda(reason: str) -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{reason} and no CUDA device is available: the port runs on the GPU unless the "
+                           f"config says 'device: cpu'")
+    return torch.device("cuda")
 
 
 def resolve_device(config_device) -> torch.device:
-    if config_device is None:
-        device = default_device()
-        logger.info(f"Config has no 'device' key -- autodetected {device}")
-        return device
+    """The torch device of a config's `device` value (see the module
+    docstring); never the CPU unless asked for."""
     if isinstance(config_device, torch.device):
-        return config_device
-    if config_device in _LEGACY_DEVICES:
-        device = default_device()
-        logger.warning(f"Legacy device '{config_device}' in config; using '{device}' instead")
-        return device
-    if config_device == "cpu":
+        device = config_device
+    elif config_device == "cpu":
         return torch.device("cpu")
-    if isinstance(config_device, str) and config_device.split(":")[0] == "cuda":
+    elif config_device is None:
+        device = _default_cuda("Config has no 'device' key")
+        logger.info(f"Config has no 'device' key -- using {device}")
+    elif config_device in _LEGACY_DEVICES:
+        device = _default_cuda(f"Config asks for the legacy device '{config_device}'")
+        logger.warning(f"Legacy device '{config_device}' in config; using '{device}' instead")
+    elif isinstance(config_device, str) and config_device.split(":")[0] == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"Config asks for device '{config_device}' but no CUDA device is available")
-        return torch.device(config_device)
-    raise ValueError(f"Config key device: {config_device} not understood -- supported values: cuda, cpu")
+        device = torch.device(config_device)
+    else:
+        raise ValueError(f"Config key device: {config_device} not understood -- supported values: cuda, cpu")
+    if device.type == "cuda":
+        use_float32_math()
+    return device
 
 
 def override_config(args, config):
@@ -84,7 +104,7 @@ def load_config(argv=None) -> tuple[dict, str]:
 
     config["device"] = resolve_device(config.get("device", None))
     if config["device"].type == "cpu":
-        logger.warning("Running on CPU: expect slow training/prediction")
+        logger.warning("Running on CPU (device: cpu): expect slow training/prediction")
     return config, args.config
 
 

@@ -10,7 +10,7 @@ JAX registry raise until they are ported.
 import torch
 import torch.nn.functional as F
 
-from pytorch3dunet_tpu.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("Loss")
 

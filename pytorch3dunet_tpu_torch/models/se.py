@@ -1,0 +1,52 @@
+"""Squeeze-and-Excitation blocks as torch modules (NCDHW).
+
+Counterparts of pytorch3dunet_tpu/models/se.py and of the reference
+(pytorch3dunet/unet3d/se.py): channel SE (Hu et al., arXiv:1709.01507), spatial
+SE and concurrent scSE (Roy et al., arXiv:1803.02579). Module names are the
+reference's (`cSE.fc1`, `sSE.conv`), the keys the JAX package's torch interop
+reads and writes. The JAX layers' optimization barrier (`_guard`) works around
+a TPU compiler fault and has no counterpart here.
+"""
+
+import torch
+import torch.nn as nn
+
+
+class ChannelSELayer3D(nn.Module):
+    """Channel squeeze & excitation: global-average squeeze, then a two-layer
+    MLP gate (fc1, ReLU, fc2, sigmoid) that scales each channel."""
+
+    def __init__(self, num_channels: int, reduction_ratio: int = 2):
+        super().__init__()
+        reduced = num_channels // reduction_ratio
+        self.fc1 = nn.Linear(num_channels, reduced, bias=True)
+        self.fc2 = nn.Linear(reduced, num_channels, bias=True)
+
+    def forward(self, x):
+        squeezed = x.mean(dim=(2, 3, 4))
+        gate = torch.sigmoid(self.fc2(torch.relu(self.fc1(squeezed))))
+        return x * gate[:, :, None, None, None]
+
+
+class SpatialSELayer3D(nn.Module):
+    """Spatial squeeze & excitation: a 1x1x1 conv to one channel, sigmoid, and
+    the product with every channel."""
+
+    def __init__(self, num_channels: int):
+        super().__init__()
+        self.conv = nn.Conv3d(num_channels, 1, 1)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.conv(x))
+
+
+class ChannelSpatialSELayer3D(nn.Module):
+    """Concurrent channel and spatial SE, combined by an element-wise max."""
+
+    def __init__(self, num_channels: int, reduction_ratio: int = 2):
+        super().__init__()
+        self.cSE = ChannelSELayer3D(num_channels, reduction_ratio)
+        self.sSE = SpatialSELayer3D(num_channels)
+
+    def forward(self, x):
+        return torch.maximum(self.cSE(x), self.sSE(x))

@@ -1,4 +1,5 @@
-"""UNet3D as a torch module (NCDHW), the counterpart of pytorch3dunet_tpu/models/unet.py.
+"""The 3D U-Net families as torch modules (NCDHW), the counterparts of
+pytorch3dunet_tpu/models/unet.py: UNet3D, ResidualUNet3D, ResidualUNetSE3D.
 
 `forward` returns `(probs, logits)` like the JAX `UNetModel.apply`: sigmoid or
 softmax over the channel axis for segmentation, the logits twice otherwise.
@@ -7,30 +8,41 @@ softmax over the channel axis for segmentation, the logits twice otherwise.
 import torch
 import torch.nn as nn
 
-from pytorch3dunet_tpu.utils.misc import number_of_features_per_level
 from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder
 from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d
+from pytorch3dunet_tpu_torch.utils.misc import number_of_features_per_level
 
 # model families of the JAX package that the port does not have yet, with
 # the ROADMAP item that ports them
 _NOT_PORTED = {
-    "ResidualUNet3D": "Queue 1 item 7",
-    "ResidualUNetSE3D": "Queue 1 item 7",
     "UNet2D": "Queue 1 item 7",
     "ResidualUNet2D": "Queue 1 item 7",
 }
 
 
+def _resolve_upsample(upsample: str, basic_module: str) -> tuple[str, bool]:
+    """('default' | mode) -> (mode, concat), as JAX unet.py:37-47: 'default' is
+    nearest with concat joins for DoubleConv, deconv with sum joins for the
+    ResNet blocks; a named mode joins by concat."""
+    if upsample == "default":
+        return ("nearest", True) if basic_module == "DoubleConv" else ("deconv", False)
+    return upsample, True
+
+
 class UNet3D(nn.Module):
     """3D U-Net (Cicek et al., arXiv:1606.06650): DoubleConv blocks, max-pool
-    down, nearest up, concat joins, a 1x1 final conv."""
+    down, nearest up, concat joins, a 1x1 final conv. The subclasses change the
+    basic module and the default depth."""
+
+    basic_module = "DoubleConv"
+    default_num_levels = 4
 
     def __init__(self, in_channels: int, out_channels: int, final_sigmoid: bool = True, f_maps=64,
-                 layer_order: str = "gcr", num_groups: int = 8, num_levels: int = 4,
-                 is_segmentation: bool = True, pool_kernel_size=2, dropout_prob=0.1):
+                 layer_order: str = "gcr", num_groups: int = 8, num_levels: int | None = None,
+                 is_segmentation: bool = True, pool_kernel_size=2, dropout_prob=0.1, upsample: str = "default"):
         super().__init__()
         if isinstance(f_maps, int):
-            f_maps = number_of_features_per_level(f_maps, num_levels=num_levels)
+            f_maps = number_of_features_per_level(f_maps, num_levels=num_levels or self.default_num_levels)
         assert isinstance(f_maps, (list, tuple)) and len(f_maps) > 1, "Required at least 2 levels in the U-Net"
         self.final_sigmoid = final_sigmoid
         self.is_segmentation = is_segmentation
@@ -41,12 +53,15 @@ class UNet3D(nn.Module):
             in_feature_num = in_channels if i == 0 else f_maps[i - 1]
             self.encoders.append(Encoder(in_feature_num, out_feature_num, apply_pooling=i > 0,
                                          pool_kernel_size=pool_kernel_size, order=layer_order,
-                                         num_groups=num_groups, dropout_prob=dropout_prob))
+                                         num_groups=num_groups, dropout_prob=dropout_prob,
+                                         basic_module=self.basic_module))
+        mode, concat = _resolve_upsample(upsample, self.basic_module)
         reversed_f_maps = list(reversed(f_maps))
         self.decoders = nn.ModuleList()
         for i in range(len(reversed_f_maps) - 1):
-            self.decoders.append(Decoder(reversed_f_maps[i] + reversed_f_maps[i + 1], reversed_f_maps[i + 1],
-                                         order=layer_order, num_groups=num_groups, dropout_prob=dropout_prob))
+            self.decoders.append(Decoder(reversed_f_maps[i], reversed_f_maps[i + 1], order=layer_order,
+                                         num_groups=num_groups, dropout_prob=dropout_prob,
+                                         basic_module=self.basic_module, upsample_mode=mode, concat=concat))
         self.final_conv = Conv3d(f_maps[0], out_channels, kernel_size=1, padding=0)
 
     def forward(self, x):
@@ -64,16 +79,36 @@ class UNet3D(nn.Module):
         return probs, logits
 
 
+class ResidualUNet3D(UNet3D):
+    """Residual 3D U-Net (arXiv:1706.00120): ResNet blocks, deconv upsampling,
+    summation joins, 5 levels by default."""
+
+    basic_module = "ResNetBlock"
+    default_num_levels = 5
+
+
+class ResidualUNetSE3D(UNet3D):
+    """Residual 3D U-Net with scSE squeeze-and-excitation after every ResNet
+    block, 5 levels by default."""
+
+    basic_module = "ResNetBlockSE"
+    default_num_levels = 5
+
+
+_MODELS = {cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3D)}
+
 # constructor keys of the JAX UNetModel whose non-default values the port does
 # not run yet: key -> (accepted values, ROADMAP item)
 _UNPORTED_OPTIONS = {
     "conv_kernel_size": ((3,), "Queue 1 item 7"),
     "conv_padding": ((1,), "Queue 1 item 7"),
     "conv_upscale": ((2,), "Queue 1 item 7"),
-    "upsample": (("default", "nearest"), "Queue 1 item 7"),
     "dtype": ((None, "float32", "fp32"), "Queue 1 item 9"),
     "remat": ((False,), "Queue 1 item 9"),
 }
+# the upsampling that the port runs for each basic module; other modes raise
+_PORTED_UPSAMPLE = {"DoubleConv": ("default", "nearest"), "ResNetBlock": ("default", "deconv"),
+                    "ResNetBlockSE": ("default", "deconv")}
 
 
 def get_model(model_config: dict) -> UNet3D:
@@ -83,10 +118,14 @@ def get_model(model_config: dict) -> UNet3D:
     name = config.pop("name")
     if name in _NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name]})")
-    if name != "UNet3D":
+    if name not in _MODELS:
         raise ValueError(f"Unknown model {name!r}")
-    for key, (accepted, item) in _UNPORTED_OPTIONS.items():
-        if key in config and config.pop(key) not in accepted:
+    model_class = _MODELS[name]
+    options = dict(_UNPORTED_OPTIONS, upsample=(_PORTED_UPSAMPLE[model_class.basic_module], "Queue 1 item 7"))
+    for key, (accepted, item) in options.items():
+        if key in config and config[key] not in accepted:
             raise NotImplementedError(f"model.{key}={model_config[key]!r} is not ported to PyTorch yet "
                                       f"(ROADMAP {item})")
-    return UNet3D(**config)
+        if key != "upsample":
+            config.pop(key, None)
+    return model_class(**config)

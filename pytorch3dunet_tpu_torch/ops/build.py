@@ -17,7 +17,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from pytorch3dunet_tpu.utils import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("KernelBuild")
 
@@ -41,6 +41,12 @@ SIGNATURES = {
         "conv3d_packw_bf16": (_CONV_ARGS, ctypes.c_int),
         "conv3d_packw_error_string": ([ctypes.c_int], ctypes.c_char_p),
         "conv3d_packw_smem_bytes": ([], ctypes.c_int),
+    },
+    "conv3d_im2col": {
+        "conv3d_im2col_f32": (_CONV_ARGS, ctypes.c_int),
+        "conv3d_im2col_bf16": (_CONV_ARGS, ctypes.c_int),
+        "conv3d_im2col_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "conv3d_im2col_smem_bytes": ([], ctypes.c_int),
     },
 }
 

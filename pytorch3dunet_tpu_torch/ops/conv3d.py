@@ -5,26 +5,33 @@ plain versions, and the conv's autograd.
 (pytorch3dunet_tpu/ops/conv_pallas.py `conv3d_fwd`): x (N, D, H, W, C)
 channels-last, w (3, 3, 3, C, F), b (F,) or None -> (N, D, H, W, F) in x's
 dtype, f32 accumulation, bias fused. Its `variant` names the Pallas tiling; on
-CUDA each ported tiling is its own kernel:
-- "roll" (K2) -> `csrc/conv3d_fwd.cu`, the forward of every conv;
-- "packw" (K3) -> `csrc/conv3d_packw.cu`, the conv's input gradient;
-- "im2col" (K1) is not ported yet and raises on CUDA.
+CUDA each tiling is its own kernel:
+- "roll" (K2) -> `csrc/conv3d_fwd.cu`, the conv forward by default;
+- "im2col" (K1) -> `csrc/conv3d_im2col.cu`, the tap-folded forward: every conv
+  with F >= 64 when P3DUNET_TAPFOLD=1 (`forward_variant`);
+- "packw" (K3) -> `csrc/conv3d_packw.cu`, the conv's input gradient.
 A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the plain
 version, `conv3d_fwd_reference`, whatever the variant.
 
+`forward_variant` is the JAX package's switch (pytorch3dunet_tpu/ops/conv.py
+`_use_tapfold`), read at call time as there: the JAX forward is then the
+tap-folded one and its backward the plain one (`_conv3d_mixed`), which is what
+the port does too. The switch changes how the conv is computed, never its values.
+
 The input gradient of this conv is the same conv run on dy with the taps
 flipped and C and F swapped (`conv3d_input_grad`). `Conv3dFunction` is the
-autograd of the conv on NDHWC tensors: its forward is K2, its input gradient
-K3, its weight gradient `torch.nn.grad.conv3d_weight` (the JAX package leaves
-the weight gradient to XLA, outside any kernel).
+autograd of the conv on NDHWC tensors: its forward is K2 or K1, its input
+gradient K3, its weight gradient `torch.nn.grad.conv3d_weight` (the JAX package
+leaves the weight gradient to XLA, outside any kernel).
 
 `Conv3d` is the model's conv layer (NCDHW in and out, torch weight layout). It
-runs every 3x3x3 pad-1 conv through the above, and the 1x1 `final_conv`
-through plain `F.conv3d`, as the JAX package computes that conv outside any
-Pallas kernel.
+runs every 3x3x3 pad-1 conv through the above, and a 1x1 conv (the
+`final_conv`, the ResNet projection) through plain `F.conv3d`, as the JAX
+package computes those convs outside any Pallas kernel.
 """
 
 import contextlib
+import os
 
 import torch
 import torch.nn as nn
@@ -33,10 +40,11 @@ import torch.nn.functional as F
 from pytorch3dunet_tpu_torch.ops import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the plain version also runs float64, for reference steps on the card
+_REFERENCE_DTYPES = (*_DTYPES, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Pallas variant -> the csrc/ source of its CUDA kernel
-KERNELS = {"roll": "conv3d_fwd", "packw": "conv3d_packw"}
-_NOT_PORTED = {"im2col": "ROADMAP Queue 2 K1"}
+KERNELS = {"roll": "conv3d_fwd", "packw": "conv3d_packw", "im2col": "conv3d_im2col"}
 
 # launches of each CUDA kernel (by source name) since the last reset; callers
 # set them to 0
@@ -62,9 +70,16 @@ def plain_conv():
         _force_plain = previous
 
 
-def _check(x, w, b):
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"conv3d_fwd: x must be float32 or bfloat16, got {x.dtype}")
+def forward_variant(features: int) -> str:
+    """The forward kernel of a 3x3x3 conv with `features` outputs: K1
+    ("im2col") when P3DUNET_TAPFOLD=1 and features >= 64, as the JAX package's
+    `_use_tapfold` chooses its tap-folded forward; K2 ("roll") otherwise."""
+    return "im2col" if os.environ.get("P3DUNET_TAPFOLD", "0") == "1" and features >= 64 else "roll"
+
+
+def _check(x, w, b, dtypes=_DTYPES):
+    if x.dtype not in dtypes:
+        raise TypeError(f"conv3d_fwd: x must be one of {[str(d)[6:] for d in dtypes]}, got {x.dtype}")
     if x.ndim != 5:
         raise ValueError(f"conv3d_fwd: x must be (N, D, H, W, C), got shape {tuple(x.shape)}")
     C = x.shape[-1]
@@ -82,28 +97,30 @@ def _check(x, w, b):
 def conv3d_fwd_reference(x, w, b=None):
     """Plain version of `conv3d_fwd`, same contract: `w` and `b` are cast to
     x's dtype, then `F.conv3d` runs in float32 on permuted views and the result
-    is cast back once (the kernel's f32 accumulation and single rounding)."""
-    _check(x, w, b)
-    w = w.to(x.dtype).float()
-    bias = None if b is None else b.to(x.dtype).float()
-    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), bias, padding=1)
+    is cast back once (the kernel's f32 accumulation and single rounding). A
+    float64 x runs in float64, for reference computations."""
+    _check(x, w, b, _REFERENCE_DTYPES)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    w = w.to(x.dtype).to(acc)
+    bias = None if b is None else b.to(x.dtype).to(acc)
+    y = F.conv3d(x.to(acc).permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), bias, padding=1)
     return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
-def conv3d_fwd(x, w, b=None, variant: str = "roll"):
+def conv3d_fwd(x, w, b=None, variant: str | None = None):
     """Fused 3x3x3 conv forward on (N, D, H, W, C) -> (N, D, H, W, F).
 
     `b=None` means zeros; `w` and `b` are cast to x's dtype. On CUDA the
     kernel of `variant` runs, on the current stream; on the CPU the plain
-    version does. No autograd: training goes through `Conv3dFunction`."""
-    if variant not in KERNELS and variant not in _NOT_PORTED:
-        raise ValueError(f"conv3d_fwd: unknown variant {variant!r}; expected one of "
-                         f"{sorted([*KERNELS, *_NOT_PORTED])}")
+    version does. `variant=None` is the conv forward's own choice,
+    `forward_variant(F)`. No autograd: training goes through `Conv3dFunction`."""
+    if variant is None:
+        variant = forward_variant(w.shape[-1])
+    if variant not in KERNELS:
+        raise ValueError(f"conv3d_fwd: unknown variant {variant!r}; expected one of {sorted(KERNELS)}")
+    _check(x, w, b)
     if x.device.type == "cpu":
         return conv3d_fwd_reference(x, w, b)
-    _check(x, w, b)
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(f"conv3d_fwd variant {variant!r} has no CUDA kernel yet ({_NOT_PORTED[variant]})")
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_fwd: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
@@ -117,7 +134,7 @@ def conv3d_fwd(x, w, b=None, variant: str = "roll"):
     w = w.to(x.dtype).contiguous()
     if b is not None:
         b = b.to(x.dtype).contiguous()
-    elif variant == "roll":  # K2 always reads a bias; K3 takes a null one
+    elif variant == "roll":  # K2 always reads a bias; K1 and K3 take a null one
         b = torch.zeros(Fo, dtype=x.dtype, device=x.device)
     y = torch.empty((N, D, H, W, Fo), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
@@ -157,9 +174,9 @@ class Conv3dFunction(torch.autograd.Function):
     """Autograd of the 3x3x3 pad-1 conv on NDHWC tensors: x (N, D, H, W, C),
     w (3, 3, 3, C, F), b (F,) or None.
 
-    forward: `conv3d_fwd` (K2 on CUDA). backward: dx by `conv3d_input_grad`
-    (K3 on CUDA) when x needs a gradient, dw by `torch.nn.grad.conv3d_weight`
-    on NCDHW views, db by summing dy. In the UNet, dy arrives NDHWC-contiguous:
+    forward: `conv3d_fwd` (on CUDA K2, or K1 by `forward_variant`). backward:
+    dx by `conv3d_input_grad` (K3 on CUDA) when x needs a gradient, dw by
+    `torch.nn.grad.conv3d_weight` on NCDHW views, db by summing dy. In the UNet, dy arrives NDHWC-contiguous:
     the backward of the GroupNorm, ReLU or pooling that read the conv's
     channels-last output keeps that layout. `grad_copies` counts the copies
     made when it does not."""
@@ -171,7 +188,7 @@ class Conv3dFunction(torch.autograd.Function):
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
         ctx.has_bias = b is not None
-        y = conv3d_fwd(x, w, b, variant="roll")
+        y = conv3d_fwd(x, w, b)
         # the plain version (CPU) may return a permuted view of its own result;
         # autograd forbids in-place ops (the ReLU after the conv) on a view
         # made inside a Function

@@ -6,7 +6,7 @@ torch-format checkpoint (`model_path`).
 
 import os
 
-from pytorch3dunet_tpu.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 from pytorch3dunet_tpu_torch.config import load_config, resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_test_loaders
 from pytorch3dunet_tpu_torch.models.unet import get_model

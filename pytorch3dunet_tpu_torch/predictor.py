@@ -13,9 +13,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pytorch3dunet_tpu.augment.transforms import Transformer
-from pytorch3dunet_tpu.datasets.utils import SliceBuilder, calculate_stats, mirror_pad, remove_padding
-from pytorch3dunet_tpu.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.augment.transforms import Transformer
+from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder, calculate_stats, mirror_pad, remove_padding
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("UNetPredictor")
 
@@ -30,7 +30,7 @@ class StandardPredictor:
     """Keeps the stitched prediction in RAM and saves it as gzip H5.
 
     Args:
-        model: the port's UNet3D, already on `device` and in eval mode.
+        model: one of the port's models, already on `device` and in eval mode.
         output_dir: directory for the prediction H5 files (None: beside the input).
         out_channels: output channels of the model.
         device: torch device the forward runs on.

@@ -9,7 +9,7 @@ import random
 import numpy as np
 import torch
 
-from pytorch3dunet_tpu.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 from pytorch3dunet_tpu_torch.config import copy_config, load_config
 from pytorch3dunet_tpu_torch.trainer import create_trainer
 

@@ -3,13 +3,14 @@
 The workflow of the JAX trainer and of the reference pytorch-3dunet
 UNetTrainer: epochs counted in iterations, a step of forward, loss on the
 logits, `zero_grad` / `backward` / `step`; validation every
-`validate_after_iters` under `torch.no_grad()` with the JAX package's numpy
-metric; ReduceLROnPlateau stepped on the eval score; last/best checkpoints;
+`validate_after_iters` under `torch.no_grad()` with the host numpy metric of
+`metrics.py`; ReduceLROnPlateau stepped on the eval score; last/best checkpoints;
 stop at `max_num_iterations` or when the lr falls below 1e-6; `resume` and
 `pre_trained`.
 
 On CUDA every 3x3x3 conv of the step runs on the hand-written kernels
-(ops/conv3d.py): the forward on K2, the input gradient on K3.
+(ops/conv3d.py): the forward on K2 (on K1 for F >= 64 under
+P3DUNET_TAPFOLD=1), the input gradient on K3.
 
 Not ported yet, and refused when a config asks for them: gradient
 accumulation, EMA weights, `resume: auto`, profiler traces and parameter
@@ -25,8 +26,8 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from pytorch3dunet_tpu.metrics import get_evaluation_metric
-from pytorch3dunet_tpu.utils.misc import RunningAverage, get_logger
+from pytorch3dunet_tpu_torch.metrics import get_evaluation_metric
+from pytorch3dunet_tpu_torch.utils.misc import RunningAverage, get_logger
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
@@ -117,7 +118,7 @@ class UNetTrainer:
         self.validate_iters = validate_iters
         self.eval_score_higher_is_better = eval_score_higher_is_better
         self.skip_train_validation = skip_train_validation
-        self.device = torch.device("cpu") if device is None else device
+        self.device = resolve_device(device)
         self.num_iterations = num_iterations
         self.num_epochs = num_epoch
 

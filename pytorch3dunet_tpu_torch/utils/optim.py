@@ -10,7 +10,7 @@ name raises until it is ported.
 
 import torch
 
-from pytorch3dunet_tpu.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("Optim")
 

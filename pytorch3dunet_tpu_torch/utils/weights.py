@@ -1,10 +1,11 @@
 """Weights for the port's models: from the JAX package's variables, or from a
 torch-format `.pytorch` checkpoint.
 
-Both go through the reference state-dict layout of
-pytorch3dunet_tpu/utils/torch_interop.py, so a checkpoint written by
-`convert3dunet --to torch` or by `save_torch_checkpoint` loads with
-`strict=True`.
+Both use the reference state-dict layout that the JAX package's torch interop
+writes (`convert3dunet --to torch`, `save_torch_checkpoint`), so such a
+checkpoint loads with `strict=True`. The JAX variables cross through the port's
+own copy of that export (`utils/interop.py`): conv and ResNet keys, the deconv's
+tap flip, and the SE layers' keys.
 """
 
 import zipfile
@@ -12,7 +13,7 @@ import zipfile
 import numpy as np
 import torch
 
-from pytorch3dunet_tpu.utils.torch_interop import batch_stats_to_torch_entries, params_to_torch_state_dict
+from pytorch3dunet_tpu_torch.utils.interop import batch_stats_to_torch_entries, params_to_torch_state_dict
 
 
 def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:

@@ -3,8 +3,8 @@ JAX package's Pallas kernel (interpret mode) and its Conv3D layer, forward and
 VJP.
 
 On the CPU `conv3d_fwd` runs its plain version whatever the variant; the CUDA
-kernels themselves are held against that plain version on the GPU by
-chip_smoke.py.
+kernels themselves (K2 `roll`, K3 `packw`, K1 `im2col`) are held against that
+plain version on the GPU by chip_smoke.py.
 """
 
 import jax
@@ -134,11 +134,47 @@ def test_layer_output_takes_an_inplace_relu_in_training():
     assert x.grad is not None
 
 
-def test_im2col_has_no_cuda_kernel_yet():
-    # meta tensors stand in for a device that is not the CPU
+@pytest.mark.parametrize("variant", ["im2col", "packw"])
+def test_kernel_variants_reject_devices_other_than_cpu_and_cuda(variant):
+    # meta tensors stand in for a device that is neither the CPU nor CUDA
     x = torch.zeros(1, 2, 3, 3, 2, device="meta")
-    with pytest.raises(NotImplementedError, match="Queue 2 K1"):
-        conv3d_fwd(x, torch.zeros(3, 3, 3, 2, 2, device="meta"), variant="im2col")
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3d_fwd(x, torch.zeros(3, 3, 3, 2, 2, device="meta"), variant=variant)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_im2col_has_entry_points_for_both_dtypes(dtype):
+    entry = f"conv3d_im2col_{dtype}"
+    assert build.SIGNATURES["conv3d_im2col"][entry] == build.SIGNATURES["conv3d_fwd"][f"conv3d_fwd_{dtype}"]
+    source = build.source_path("conv3d_im2col").read_text()
+    assert f'extern "C" int {entry}(' in source
+
+
+@pytest.mark.parametrize("switch,features,want", [
+    (None, 64, "roll"), ("0", 64, "roll"), ("1", 32, "roll"), ("1", 63, "roll"), ("1", 64, "im2col"),
+    ("1", 512, "im2col"), ("true", 64, "roll"),
+])
+def test_forward_variant_is_the_jax_tapfold_rule(monkeypatch, switch, features, want):
+    if switch is None:
+        monkeypatch.delenv("P3DUNET_TAPFOLD", raising=False)
+    else:
+        monkeypatch.setenv("P3DUNET_TAPFOLD", switch)
+    assert conv3d.forward_variant(features) == want
+    assert conv3d.KERNELS[want] in build.SIGNATURES
+
+
+def test_function_grads_match_jax_tapfold_vjp(monkeypatch):
+    # with the switch the JAX layer runs its tap-folded forward and the plain
+    # backward (`_conv3d_mixed`); the port's Function runs K1's plain version
+    # forward and K3's backward
+    monkeypatch.setenv("P3DUNET_TAPFOLD", "1")
+    x, w, b = _inputs((1, 3, 5, 6, 3), 3, 64, 51)
+    dy = np.random.RandomState(52).rand(1, 3, 5, 6, 64).astype(np.float32) - 0.5
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    y = Conv3dFunction.apply(xt, wt, bt)
+    got = torch.autograd.grad(y, (xt, wt, bt), torch.from_numpy(dy))
+    for name, g, want in zip(("dx", "dw", "db"), got, _jax_conv_vjp(x, w, b, dy)):
+        np.testing.assert_allclose(g.numpy(), want, atol=1e-5, err_msg=name)
 
 
 def test_unknown_variant_raises():
@@ -198,6 +234,20 @@ def test_rejects_bad_inputs(bad):
         conv3d_fwd(x, w, b)
 
 
+def test_plain_version_runs_float64_but_the_wrapper_does_not():
+    x, w, b = _inputs((1, 3, 5, 6, 2), 2, 3, 61)
+    x64, w64, b64 = (torch.from_numpy(a).double() for a in (x, w, b))
+    got = conv3d_fwd_reference(x64, w64, b64)
+    want = F.conv3d(x64.permute(0, 4, 1, 2, 3), w64.permute(4, 3, 0, 1, 2), b64, padding=1).permute(0, 2, 3, 4, 1)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    with pytest.raises(TypeError, match="float32"):
+        conv3d_fwd(x64, w64, b64)
+    layer = Conv3d(2, 3).double()
+    with torch.no_grad(), plain_conv():
+        assert layer(x64.permute(0, 4, 1, 2, 3)).dtype == torch.float64
+
+
 def test_rejects_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         conv3d_fwd(torch.zeros(1, 2, 3, 3, 2, device="meta"), torch.zeros(3, 3, 3, 2, 2, device="meta"))
@@ -212,14 +262,14 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
 def test_cpu_calls_do_not_count_as_launches(monkeypatch):
     monkeypatch.setattr(conv3d, "launches", dict.fromkeys(conv3d.launches, 0))
     x, w, b = _inputs((1, 3, 6, 7, 4), 4, 5, 1)
-    for variant in ("roll", "packw"):
+    for variant in ("roll", "packw", "im2col"):
         _port(x, w, b, variant)
     layer = Conv3d(4, 5).eval()
     with torch.no_grad():
         layer(torch.from_numpy(np.moveaxis(x, -1, 1)))
     xt = torch.from_numpy(np.moveaxis(x, -1, 1)).requires_grad_()
     layer.train()(xt).sum().backward()
-    assert conv3d.launches == {"conv3d_fwd": 0, "conv3d_packw": 0}
+    assert conv3d.launches == {"conv3d_fwd": 0, "conv3d_packw": 0, "conv3d_im2col": 0}
 
 
 @pytest.mark.parametrize("kernel_size,padding", [(3, 1), (1, 0)])
@@ -257,6 +307,10 @@ def test_library_named_by_source_hash(tmp_path, monkeypatch):
 
 def test_packw_library_named_by_source_hash(tmp_path, monkeypatch):
     _check_library_named_by_source_hash(tmp_path, monkeypatch, "conv3d_packw")
+
+
+def test_im2col_library_named_by_source_hash(tmp_path, monkeypatch):
+    _check_library_named_by_source_hash(tmp_path, monkeypatch, "conv3d_im2col")
 
 
 def _check_library_named_by_source_hash(tmp_path, monkeypatch, name):

@@ -85,7 +85,9 @@ def workload(tmp_path_factory):
     script = ("import runpy, sys\n"
               f"sys.argv = ['predict', '--config', {port_yaml!r}]\n"
               "runpy.run_module('pytorch3dunet_tpu_torch.predict', run_name='__main__')\n"
-              "assert 'jax' not in sys.modules, 'the port imported jax'\n")
+              "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+              "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'pytorch3dunet_tpu')\n"
+              "assert not bad, f'the port imported the JAX package: {bad}'\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp, env=env, capture_output=True, text=True,
                           timeout=300)
@@ -150,12 +152,19 @@ def test_jax_checkpoint_raises_with_convert_hint(tmp_path):
 
 
 def test_config_overrides_and_autodetect(tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the confocal config has no 'device' key: without a card it raises and
+    # names `device: cpu`; with one it takes cuda, in float32
     src = os.path.join(REPO, "resources", "3DUnet_confocal_boundary", "test_config.yml")
-    config, path = load_config(["--config", src, "--model_path", "w.pytorch",
-                                "--loaders.test.slice_builder.patch_shape", "40", "96", "96"])
+    argv = ["--config", src, "--model_path", "w.pytorch", "--loaders.test.slice_builder.patch_shape", "40", "96", "96"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device: cpu"):
+        load_config(argv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    config, path = load_config(argv)
     assert path == src
-    assert config["device"] == torch.device("cpu")  # no 'device' key: autodetected
+    assert config["device"] == torch.device("cuda")
+    assert torch.backends.cudnn.allow_tf32 is False
     assert config["model_path"] == "w.pytorch"
     assert config["loaders"]["test"]["slice_builder"]["patch_shape"] == [40, 96, 96]
     assert get_model(config["model"]).final_conv.out_channels == 1
@@ -167,8 +176,13 @@ def test_config_overrides_and_autodetect(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("value", [None, "cpu", "tpu", "mps"])
 def test_resolve_device(value, monkeypatch):
+    # without a card only an explicit `device: cpu` runs; the rest raise and name it
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert resolve_device(value) == torch.device("cpu")
+    if value == "cpu":
+        assert resolve_device(value) == torch.device("cpu")
+    else:
+        with pytest.raises(RuntimeError, match="device: cpu"):
+            resolve_device(value)
 
 
 def test_resolve_device_rejects_unknown():

@@ -270,7 +270,9 @@ def cli_run(tmp_path_factory):
     script = ("import runpy, sys\n"
               f"sys.argv = ['train', '--config', {config_path!r}]\n"
               "runpy.run_module('pytorch3dunet_tpu_torch.train', run_name='__main__')\n"
-              "assert 'jax' not in sys.modules, 'the port imported jax'\n")
+              "assert 'jax' not in sys.modules, 'the port imported jax'\n"
+              "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'pytorch3dunet_tpu')\n"
+              "assert not bad, f'the port imported the JAX package: {bad}'\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp, env=env, capture_output=True, text=True,
                           timeout=300)
@@ -333,12 +335,15 @@ def test_checkpoint_loads_in_jax_and_in_the_port_predict_cli(cli_run, tmp_path):
 
 def test_port_imports_no_jax_h5py_yaml_or_tensorboard():
     # the card's machine has none of these: every module of the port imports
-    # them, if at all, inside the function that needs them
+    # them, if at all, inside the function that needs them; and the port imports
+    # nothing of the JAX package, nor does chip_smoke.py
     script = ("import importlib, pkgutil, sys\n"
+              "import chip_smoke\n"
               "import pytorch3dunet_tpu_torch as port\n"
               "for module in pkgutil.walk_packages(port.__path__, 'pytorch3dunet_tpu_torch.'):\n"
               "    importlib.import_module(module.name)\n"
-              "print(sorted(set(sys.modules) & {'jax', 'flax', 'optax', 'h5py', 'yaml', 'tensorboardX'}))\n")
+              "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+              "             {'jax', 'flax', 'optax', 'h5py', 'yaml', 'tensorboardX', 'pytorch3dunet_tpu'}))\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
