@@ -26,7 +26,8 @@ Phases, each fatal on failure:
      random weights), 6 Adam steps on one synthetic 80x170x170 batch and 2
      validations; checks the launch counts of both kernels, the falling loss,
      the checkpoint, and one step's gradients against the plain conv;
-  8. train times: K3 per input-gradient shape against cuDNN's
+  8. train times: K3 per input-gradient shape against one `F.conv3d` on dy
+     and the flipped weights (the same function as K3) and cuDNN's
      `conv3d_input` (TF32 off and on), cuDNN's weight gradient per conv shape
      (TF32 off and on), one train step with the kernels against the plain conv
      (TF32 off and on), voxels/s and peak memory;
@@ -58,8 +59,13 @@ forward on the im2col kernel (K1), and unset it after:
      one forward's device time by kernel (torch.profiler).
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
-launches, error, and the bound: the larger of FLOPs at the H100's 67 TFLOP/s
-f32 peak and bytes at its 3.35 TB/s); the last line is {"ok": true, "device": {...}}.
+launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
+3.35 TB/s and FLOPs at the peak rate of the arithmetic the kernel issues, f32
+FFMA at 67 TFLOP/s for K2, 3xTF32 MMAs at 495 TFLOP/s (three products a MAC)
+for the tensor-core kernels K1 and K3, which also carry the FFMA figure as
+`bound_ffma_ms` and their ptxas registers, spills and shared memory; for K1
+also its bf16 time beside its bf16 bound at 989 TFLOP/s); the last line is
+{"ok": true, "device": {...}}.
 
 Needs torch, numpy and scipy; not jax, h5py or yaml, and nothing of the JAX package.
 """
@@ -124,8 +130,12 @@ RES_MODEL = {"name": "ResidualUNet3D", "in_channels": 1, "out_channels": 1, "lay
              "num_groups": 8, "final_sigmoid": True}
 RES_LR_SCHEDULER = {"name": "ReduceLROnPlateau", "mode": "min", "factor": 0.2, "patience": 20}
 RES_TRAIN_STEPS, RES_VALIDATE_AFTER = 4, 4
-# H100 SXM peaks (NVIDIA's data sheet): f32 on the CUDA cores, HBM bandwidth
+# H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
+# bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+TF32_FLOPS, BF16_FLOPS = 495e12, 989e12
+# f32 on the tensor-core kernels is 3xTF32: three TF32 products per MAC
+TC_F32_PASSES = 3
 
 
 def log(msg):
@@ -210,22 +220,48 @@ def randomize_group_norms(model, gen):
                 module.bias.copy_(torch.rand(module.bias.shape, generator=gen) * 0.4 - 0.2)
 
 
-def conv_bound(shape, c_out, bias=True, itemsize=4):
+def conv_bound(shape, c_out, bias=True, itemsize=4, flops_per_s=F32_FLOPS, passes=1):
     """(ms, bound_by) of the least time the card could take for one 3x3x3
-    conv: FLOPs at the f32 peak or bytes (x, w, b read once, y written once)
-    at the HBM rate, whichever is larger."""
+    conv: FLOPs (times `passes`) at `flops_per_s`, by default the f32 FFMA
+    peak, or bytes (x, w, b read once, y written once) at the HBM rate,
+    whichever is larger."""
     voxels, c_in = int(np.prod(shape[:4])), shape[4]
-    ops_ms = 2 * 27 * voxels * c_in * c_out / F32_FLOPS * 1e3
+    ops_ms = passes * 2 * 27 * voxels * c_in * c_out / flops_per_s * 1e3
     bytes_ms = itemsize * (voxels * (c_in + c_out) + 27 * c_in * c_out + (c_out if bias else 0)) / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def summed_bound(rows):
-    """Sum of `conv_bound` over (shape, c_out, bias) rows, and what bounds most of it."""
-    bounds = [conv_bound(*row) for row in rows]
+def tc_bound(shape, c_out, bias=True, dtype=torch.float32):
+    """`conv_bound` of a conv on the tensor-core kernels: in f32 3xTF32 MMAs
+    at the TF32 peak, in bf16 one MMA at the bf16 peak."""
+    if dtype == torch.bfloat16:
+        return conv_bound(shape, c_out, bias, itemsize=2, flops_per_s=BF16_FLOPS)
+    return conv_bound(shape, c_out, bias, flops_per_s=TF32_FLOPS, passes=TC_F32_PASSES)
+
+
+def summed_bound(rows, bound=conv_bound):
+    """Sum of `bound` over (shape, c_out, bias) rows, and what bounds most of it."""
+    bounds = [bound(*row) for row in rows]
     by_ops = sum(ms for ms, by in bounds if by == "operations")
     total = sum(ms for ms, _ in bounds)
     return total, "operations" if by_ops >= total / 2 else "bytes"
+
+
+def ptxas_report(log):
+    """{"f32": {...}, "bf16": {...}}: the most registers and spill bytes over
+    each dtype's kernel instantiations, read from nvcc's `-Xptxas -v` output."""
+    report, dtype = {}, None
+    for line in log.splitlines():
+        words = line.replace(",", "").split()
+        if "Compiling entry function" in line:
+            dtype = "bf16" if "bfloat16" in line else "f32"
+            report.setdefault(dtype, {"registers": 0, "spill_bytes": 0})
+        elif dtype and "spill stores" in line:
+            spill = int(words[words.index("spill") - 2]) + int(words[words.index("loads") - 3])
+            report[dtype]["spill_bytes"] = max(report[dtype]["spill_bytes"], spill)
+        elif dtype and "Used" in words and "registers" in words:
+            report[dtype]["registers"] = max(report[dtype]["registers"], int(words[words.index("registers") - 1]))
+    return report
 
 
 def library_conv(x, w, b):
@@ -469,20 +505,24 @@ def residual_unet_phases(device, gen, volume, batches):
                        "library_tf32_ms": with_tf32(lambda: timed_ms(lambda: library_conv(x, w, b)))}
                 xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
                 row["k1_bf16_ms"] = timed_ms(lambda: conv3d_fwd(xb, wb, bb, variant="im2col"))
-                row["bound_ms"] = conv_bound(shape, f)[0]
+                row["bound_ms"] = tc_bound(shape, f)[0]
+                row["bound_ffma_ms"] = conv_bound(shape, f)[0]
+                row["bound_tc_bf16_ms"] = tc_bound(shape, f, dtype=torch.bfloat16)[0]
                 row["k1_tflops"] = 2 * 27 * np.prod(shape) * f / row["k1_ms"] / 1e9
                 k1_times.append(row)
                 log(f"[14 K1] {name:42s} x{shape} F={f:<3d} K1 {row['k1_ms']:.3f} ms ({row['k1_tflops']:.1f} "
-                    f"TFLOP/s, bound {row['bound_ms']:.3f}) | K2 {row['k2_ms']:.3f} | cuDNN F.conv3d "
-                    f"{row['library_ms']:.3f}, TF32 {row['library_tf32_ms']:.3f} | plain {row['plain_ms']:.3f}, "
-                    f"TF32 {row['plain_tf32_ms']:.3f} | K1 bf16 {row['k1_bf16_ms']:.3f} ms")
+                    f"TFLOP/s, 3xTF32 bound {row['bound_ms']:.3f}, FFMA {row['bound_ffma_ms']:.3f}) | K2 "
+                    f"{row['k2_ms']:.3f} | cuDNN F.conv3d {row['library_ms']:.3f}, TF32 {row['library_tf32_ms']:.3f} | "
+                    f"plain {row['plain_ms']:.3f}, TF32 {row['plain_tf32_ms']:.3f} | K1 bf16 {row['k1_bf16_ms']:.3f} "
+                    f"ms (bf16 bound {row['bound_tc_bf16_ms']:.3f})")
                 del x, w, b, xb, wb, bb
             sums = {key: sum(r[key] for r in k1_times) for key in k1_times[0] if key.endswith("_ms")}
             tflop = sum(2 * 27 * np.prod(s) * f for _, s, f in k1_shapes) / 1e12
             log(f"[14 K1] all {len(k1_times)} K1 convs of one forward ({tflop:.3f} TFLOP): K1 {sums['k1_ms']:.2f} ms | "
-                f"bound {sums['bound_ms']:.2f} | K2 {sums['k2_ms']:.2f} | cuDNN {sums['library_ms']:.2f}, TF32 "
-                f"{sums['library_tf32_ms']:.2f} | plain {sums['plain_ms']:.2f}, TF32 {sums['plain_tf32_ms']:.2f} | "
-                f"K1 bf16 {sums['k1_bf16_ms']:.2f} ms")
+                f"3xTF32 bound {sums['bound_ms']:.2f}, FFMA {sums['bound_ffma_ms']:.2f} | K2 {sums['k2_ms']:.2f} | cuDNN "
+                f"{sums['library_ms']:.2f}, TF32 {sums['library_tf32_ms']:.2f} | plain {sums['plain_ms']:.2f}, TF32 "
+                f"{sums['plain_tf32_ms']:.2f} | K1 bf16 {sums['k1_bf16_ms']:.2f} ms (bf16 bound "
+                f"{sums['bound_tc_bf16_ms']:.2f})")
 
             torch.cuda.reset_peak_memory_stats()
             fwd_ms = timed_ms(lambda: model(x0))
@@ -533,7 +573,9 @@ def residual_unet_phases(device, gen, volume, batches):
     return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "predict_launches": predict_launches, "train_launches": train_launches,
             "k1_ms": sums["k1_ms"], "k1_plain_ms": sums["plain_ms"], "k1_plain_tf32_ms": sums["plain_tf32_ms"],
             "k1_library_ms": sums["library_ms"], "k2_same_ms": sums["k2_ms"], "k1_count": len(k1_times),
-            "k1_bound": summed_bound([(shape, f, True) for _, shape, f in k1_shapes])}
+            "k1_bound": summed_bound([(shape, f, True) for _, shape, f in k1_shapes], tc_bound),
+            "k1_bound_ffma": summed_bound([(shape, f, True) for _, shape, f in k1_shapes]),
+            "k1_bf16_ms": sums["k1_bf16_ms"], "k1_bound_tc_bf16_ms": sums["bound_tc_bf16_ms"]}
 
 
 def synthetic_batch(rs):
@@ -566,7 +608,8 @@ def main():
     from pytorch3dunet_tpu_torch.models.unet import get_model
     from pytorch3dunet_tpu_torch.ops import build, conv3d
     from pytorch3dunet_tpu_torch.ops.conv3d import (Conv3d, Conv3dFunction, conv3d_fwd, conv3d_fwd_reference,
-                                                    conv3d_input_grad, conv3d_input_grad_reference, plain_conv)
+                                                    conv3d_input_grad, conv3d_input_grad_reference, flip_weight,
+                                                    plain_conv)
     from pytorch3dunet_tpu_torch.predictor import StandardPredictor
     from pytorch3dunet_tpu_torch.trainer import create_trainer
     from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint
@@ -587,13 +630,15 @@ def main():
     start = time.perf_counter()
     libs = build.load_all()
     log(f"[2 build] {', '.join(build.SIGNATURES)} built and loaded in {time.perf_counter() - start:.1f} s")
+    ptxas = {name: ptxas_report(build.build_logs.get(name, "")) for name in libs}
     for name, lib in libs.items():
         for line in build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[2 build]   {name}: {line.strip()}")
         if f"{name}_smem_bytes" in build.SIGNATURES[name]:
-            log(f"[2 build]   {name}: {getattr(lib, f'{name}_smem_bytes')()} bytes of dynamic shared memory "
-                f"per block")
+            ptxas[name]["smem_bytes"] = getattr(lib, f"{name}_smem_bytes")()
+            log(f"[2 build]   {name}: {ptxas[name]['smem_bytes']} bytes of dynamic shared memory per block (f32)")
+        log(f"[2 build]   {name}: ptxas per instantiation {ptxas[name]}")
 
     # 3. kernels vs plain
     torch.manual_seed(SEED)
@@ -795,29 +840,36 @@ def main():
             dy, w, _ = conv_inputs(shape, c, torch.float32, False, gen, device)
             w = w.transpose(3, 4).contiguous()  # (3, 3, 3, C, F) of the forward conv
             w_torch, dy_ncdhw = w.permute(4, 3, 0, 1, 2), dy.permute(0, 4, 1, 2, 3)
+            # K3's own function: the forward conv of dy with the flipped weights
+            w_flip = flip_weight(w).permute(4, 3, 0, 1, 2)
             x_size = (shape[0], c, *shape[1:4])
             row = {"conv": name, "dy": shape, "C": c,
                    "kernel_ms": timed_ms(lambda: conv3d_input_grad(dy, w)),
                    "reference_ms": timed_ms(lambda: conv3d_input_grad_reference(dy, w)),
-                   "plain_ms": timed_ms(lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)),
-                   "plain_tf32_ms": with_tf32(lambda: timed_ms(
+                   "library_ms": timed_ms(lambda: torch.nn.functional.conv3d(dy_ncdhw, w_flip, padding=1)),
+                   "conv3d_input_ms": timed_ms(
+                       lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)),
+                   "conv3d_input_tf32_ms": with_tf32(lambda: timed_ms(
                        lambda: torch.nn.grad.conv3d_input(x_size, w_torch, dy_ncdhw, padding=1)))}
             want = conv3d_input_grad_reference(dy, w)
             err = (conv3d_input_grad(dy, w) - want).abs().max().item()
             tol = TOL[torch.float32] * want.abs().max().item()
             check(err <= tol, f"conv3d_input_grad of {name} differs from its plain version by {err} (tol {tol})")
             row["kernel_tflops"] = 2 * 27 * np.prod(shape) * c / row["kernel_ms"] / 1e9
+            row["bound_ms"] = tc_bound(shape, c, False)[0]
             dgrad_times.append(row)
             log(f"[8 dgrad] {name:42s} dy{shape} -> C={c:<3d} K3 {row['kernel_ms']:.3f} ms "
-                f"({row['kernel_tflops']:.1f} TFLOP/s) | cuDNN conv3d_input {row['plain_ms']:.3f} ms | "
-                f"TF32 {row['plain_tf32_ms']:.3f} ms | max|d| vs plain {err:.2e} (tol {tol:.2e})")
-            del dy, w, w_torch, dy_ncdhw, want
-    k3_ms = sum(r["kernel_ms"] for r in dgrad_times)
-    k3_plain_ms = sum(r["plain_ms"] for r in dgrad_times)
-    k3_plain_tf32_ms = sum(r["plain_tf32_ms"] for r in dgrad_times)
+                f"({row['kernel_tflops']:.1f} TFLOP/s, 3xTF32 bound {row['bound_ms']:.3f}) | F.conv3d on the "
+                f"flipped weights {row['library_ms']:.3f} ms | plain {row['reference_ms']:.3f} ms | cuDNN "
+                f"conv3d_input {row['conv3d_input_ms']:.3f} ms, TF32 {row['conv3d_input_tf32_ms']:.3f} ms | "
+                f"max|d| vs plain {err:.2e} (tol {tol:.2e})")
+            del dy, w, w_torch, dy_ncdhw, w_flip, want
+    k3_sums = {key: sum(r[key] for r in dgrad_times) for key in dgrad_times[0] if key.endswith("_ms")}
     dgrad_tflop = sum(2 * 27 * np.prod(s) * c for _, s, c in train_dgrads) / 1e12
-    log(f"[8 dgrad] all {len(train_dgrads)} input grads of one step: K3 {k3_ms:.2f} ms | cuDNN {k3_plain_ms:.2f} ms "
-        f"| cuDNN TF32 {k3_plain_tf32_ms:.2f} ms | {dgrad_tflop:.3f} TFLOP")
+    log(f"[8 dgrad] all {len(train_dgrads)} input grads of one step ({dgrad_tflop:.3f} TFLOP): K3 "
+        f"{k3_sums['kernel_ms']:.2f} ms | 3xTF32 bound {k3_sums['bound_ms']:.2f} | F.conv3d flipped "
+        f"{k3_sums['library_ms']:.2f} ms | plain {k3_sums['reference_ms']:.2f} ms | cuDNN conv3d_input "
+        f"{k3_sums['conv3d_input_ms']:.2f} ms, TF32 {k3_sums['conv3d_input_tf32_ms']:.2f} ms")
 
     wgrad_times = []
     with torch.inference_mode():
@@ -865,7 +917,8 @@ def main():
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"]}
     k2_bound = summed_bound([(shape, f, True) for _, shape, f in shapes])
-    k3_bound = summed_bound([(shape, c, False) for _, shape, c in train_dgrads])
+    k3_bound = summed_bound([(shape, c, False) for _, shape, c in train_dgrads], tc_bound)
+    k3_bound_ffma = summed_bound([(shape, c, False) for _, shape, c in train_dgrads])
     kernels = [
         {"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
@@ -879,15 +932,21 @@ def main():
          "launches_by_path": {path: counts["conv3d_packw"] for path, counts in paths.items()},
          "max_abs_err": max(errors_k3[torch.float32], res["errors_k3"][torch.float32]),
          "max_abs_err_bf16": max(errors_k3[torch.bfloat16], res["errors_k3"][torch.bfloat16]),
-         "ms": k3_ms, "plain_ms": sum(r["reference_ms"] for r in dgrad_times), "plain_tf32_ms": k3_plain_tf32_ms,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": k3_plain_ms, "shapes": len(train_dgrads),
+         "ms": k3_sums["kernel_ms"], "plain_ms": k3_sums["reference_ms"], "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "bound_ffma_ms": k3_bound_ffma[0], "bound_ffma_by": k3_bound_ffma[1],
+         "library_ms": k3_sums["library_ms"], "library_call": "F.conv3d(dy, flipped w), NCDHW views",
+         "conv3d_input_ms": k3_sums["conv3d_input_ms"], "conv3d_input_tf32_ms": k3_sums["conv3d_input_tf32_ms"],
+         "ptxas": ptxas["conv3d_packw"], "shapes": len(train_dgrads),
          "work": "the 14 input gradients of one UNet3D 80x170x170 train step, f32"},
         {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
          "launches_by_path": {path: counts["conv3d_im2col"] for path, counts in paths.items()},
          "max_abs_err": res["errors"][torch.float32], "max_abs_err_bf16": res["errors"][torch.bfloat16],
          "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"], "plain_tf32_ms": res["k1_plain_tf32_ms"],
-         "bound_ms": res["k1_bound"][0], "bound_by": res["k1_bound"][1], "library_ms": res["k1_library_ms"],
+         "bound_ms": res["k1_bound"][0], "bound_by": res["k1_bound"][1], "bound_ffma_ms": res["k1_bound_ffma"][0],
+         "bound_ffma_by": res["k1_bound_ffma"][1], "library_ms": res["k1_library_ms"],
+         "library_call": "F.conv3d(x, w), NCDHW views", "bf16_ms": res["k1_bf16_ms"],
+         "bound_tc_bf16_ms": res["k1_bound_tc_bf16_ms"], "ptxas": ptxas["conv3d_im2col"],
          "k2_same_shapes_ms": res["k2_same_ms"], "shapes": res["k1_count"],
          "work": "the 14 K1 conv forwards of one ResidualUNet3D 112x234x234 patch, f32"},
     ]

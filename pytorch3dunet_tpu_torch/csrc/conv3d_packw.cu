@@ -1,234 +1,171 @@
-// 3x3x3 stride-1 pad-1 convolution for Hopper (sm_90a), in the packed-weight
-// formulation; it carries the conv's input gradient in training.
+// 3x3x3 stride-1 pad-1 convolution for Hopper (sm_90a) on the tensor cores, as
+// a straight 27-tap implicit GEMM; it carries the conv's input gradient in
+// training.
 //
-// Replaces pytorch3dunet_tpu/ops/conv_pallas.py `_fwd_kernel_packw` (variant
-// "packw" of its `conv3d_fwd`) and keeps its contract:
+// Replaces pytorch3dunet_tpu/ops/conv_pallas.py `_fwd_kernel_packw` (:218, its
+// wrapper :275 and `pallas_call` :289; variant "packw" of its `conv3d_fwd`) and
+// keeps its contract:
 //   x (N, D, H, W, C) channels-last, w (3, 3, 3, C, F), b (F,) or null
 //   -> y (N, D, H, W, F) in x's dtype; f32 accumulation; bias added in the epilogue.
 // The input gradient of a 3x3x3 pad-1 conv is this conv run on dy with the
 // taps flipped and C and F swapped, so the wrapper (ops/conv3d.py
 // `conv3d_input_grad`) calls it with w~[a,b,e,f,c] = w[2-a,2-b,2-e,c,f] and no bias.
 //
-// Design (K3's GEMM, one block per output tile):
-// - A block owns one output plane d, a kTH x kTW output tile and kBF output
-//   features. For each depth tap kd it reads input plane d+kd-1 over a tile
-//   two columns wider than the output (kTW+2 = 32: lane i of every warp owns
-//   wide column i).
-// - Per kd the block runs one GEMM z = P . Wp, walking C in chunks of kCK:
-//     P[(r, j'), (kh, c)]  = x[d+kd-1, h0+r+kh-1, w0+j'-1, c]   K = 3C
-//     Wp[(kh, c), (kw, f)] = w[kd, kh, kw, c, f]                N = 3 kBF
-//   Each chunk stages the (kTH+2) x 32 x kCK input rows (zero outside the
-//   volume) and the 3 x kCK x 3 x kBF weight slice in shared memory as f32.
-//   Warp g owns features 4g..4g+3 in all three kw columns; every thread
-//   accumulates an 8 row x 12 column micro-tile of z in registers.
-// - The kw shift is the f32 epilogue of each kd, through a per-warp buffer in
-//   shared memory: out[r, j, f] += z[r, j+kw, (kw, f)]. Wide columns 30 and 31
-//   only feed the shift.
-// - kd is a loop inside the block. The TPU kernel's f32 ring that carried
-//   partial sums across a sequential grid of depth planes has no counterpart:
-//   blocks run in parallel, each over its own output plane. Nor do the Pallas
-//   wrapper's WP/CP padding and its M+8 sublane rows: there is no padded copy of
-//   x in HBM, and any D, H, W >= 1 works.
+// Design (the tensor-core core is conv3d_tc.cuh; see its note for the operands,
+// the brick and the 3xTF32 split):
+// - A block owns one output plane d, 256 output pixels of it (a tile of
+//   256 / BW rows x BW - 2 columns; each warpgroup 128 of them as two m64n64
+//   accumulators sharing one A fragment) and 64 output features. It walks the
+//   depth taps kd whose input plane d+kd-1 lies in the volume, and for each the
+//   32-byte channel chunks: one staged brick serves the 9 in-plane taps, so the
+//   GEMM is y^T[f, pixel] = sum over (kd, kh, kw, c) of w[kd, kh, kw, c, f] x[..]
+//   with K = 27C and no epilogue but the bias.
+// - Why not the TPU kernel's packing (K = 3C with kh folded, N = 9F with kd and
+//   kw folded, then a kw shift in f32): on the TPU it makes one large MXU
+//   matmul per plane out of a lane-dense weight slab. Here the brick already
+//   gives every (kh, kw) tap as a shifted descriptor for free, so the packing
+//   would only add a shift epilogue through shared memory and 3x the
+//   accumulators (the input gradients' F = 32 to 512 outputs by 256 pixels at
+//   three kw columns do not fit the 255 registers a thread has). K3 keeps the
+//   function, not the packing.
+// - Blocks run in parallel, each over its own output plane; the TPU kernel's
+//   f32 ring across a sequential depth grid has no counterpart, nor do the
+//   Pallas wrapper's WP/CP padding and its M+8 sublane rows: out-of-range taps,
+//   pixels, channels and features are zero-filled while staging or dropped at
+//   the store, and any D, H, W >= 1 and any C, F work (dx of a first conv has
+//   F = 1: one feature row of the m64 tile is kept, the rest are zeros).
 //
-// What bounds it on the H100: f32 FFMA on the CUDA cores (67 TFLOP/s dense
-// peak on the SXM part), 32 of every 30 columns computed (the two shift
-// columns), and staging that is not overlapped with compute (ptxas gives 250
-// registers a thread, so one 256-thread block per SM). The GEMM's depth K = 3C is a multiple of 16
-// at every dgrad shape of the UNet (C = 32..256), which is what a later design
-// feeds to wgmma in bf16 from a TMA-fed shared-memory ring.
+// What bounds it on the H100 (SXM, 700 W): the tensor cores. f32 issues three
+// TF32 products per MAC (3xTF32 at 495 TFLOP/s dense), bf16 one (989 TFLOP/s).
+// The 14 input gradients of one 80x170x170 UNet3D train step are 1.041 TFLOP:
+// 6.3 ms of 3xTF32 MMAs at full use of the m64 tile (15.6 ms at the 67 TFLOP/s
+// FFMA rate of the kernel this one replaced). What the design does about it: a
+// 4-stage cp.async ring (41,728 bytes a stage in f32: the brick, its lo part
+// and 9 x 8 x 64 weights) keeps three chunks in flight during the MMAs, and the
+// A fragments of tap + 1 are loaded and split while the 6 wgmmas of tap run.
+// What holds it back: dx with fewer than 64 channels (C = 1, 16 and 32 at
+// levels 0-1, 14.3 of the step's 33.8 ms) leaves rows of the m64 tile empty:
+// the MMAs issued for the whole step are 1.6x the useful ones; and one block of
+// two warpgroups per SM (166,912 bytes of shared memory in f32).
+// ptxas (sm_90a): 184 registers in f32, 170 in bf16, no spills; ptxas adds a
+// warpgroup wait where the chunk's sums are read.
+// Measured (chip_smoke.py phase 8; NVIDIA H100 80GB HBM3, 700.00 W): those 14
+// input gradients in 33.8 ms f32 (0.7-53 TFLOP/s by shape), against 39.6 ms for
+// one cuDNN F.conv3d each on the flipped weights; details in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv3d_tc.cuh"
 
 #include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTH = 8;           // output rows per block; every thread covers all of them
-constexpr int kXW = 32;          // wide tile columns, one per lane
-constexpr int kTW = kXW - 2;     // output columns per block
-constexpr int kFT = 4;           // output features per warp
-constexpr int kBF = kWarps * kFT;  // output features per block
-constexpr int kCK = 16;          // input channels per shared-memory stage
-constexpr int kXH = kTH + 2;
-// channel stride of the staged rows, padded by one word so that the staging
-// stores of consecutive channels fall in different banks
-constexpr int kXC = kXH * kXW + 1;
-constexpr int kXElems = kCK * kXC;
-constexpr int kWElems = 3 * kCK * 3 * kBF;  // [kh][c][kw][f]
-constexpr int kEStride = kXW + 2;           // epilogue row: lanes 30, 31 read two past the warp
-constexpr int kEElems = kWarps * 2 * kFT * kEStride;
-constexpr int kSmemBytes = (kWElems + kXElems + kEElems) * static_cast<int>(sizeof(float));
-static_assert(kWElems % 4 == 0, "the staged rows stay 16-byte aligned after the weights");
+using namespace tc;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kPix = 256;    // output pixels per block, 128 per warpgroup
+constexpr int kStages = 4;
+constexpr int kBP = 328;     // brick pixels: (TH + 2) * BW + 2 = 322 (BW 32) or 290 (BW 16)
+static_assert(kBP % 8 == 0 && kBP >= (kPix / 32 + 2) * 32 + 2 && kBP >= (kPix / 16 + 2) * 16 + 2, "brick fits");
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
+constexpr int kStageBytes = stage_bytes<T>(kBP, 1);
+constexpr int kLoOff = kChunkBytes * kBP;  // f32: the brick's lo part
+template <typename T>
+constexpr int kWOff = weights_offset<T>(kBP);
+template <typename T>
+constexpr int kSmemBytes = kStages * kStageBytes<T>;
+static_assert(kSmemBytes<float> <= 232448 && kSmemBytes<__nv_bfloat16> <= 232448, "fits one SM");
+
+// acc[j] += W . brick(pixels pix0 + 64 j) over the 9 taps of one staged chunk
+template <typename T>
+__device__ __forceinline__ void compute_stage(float (&acc)[2][32], const char* stage, int pix0, int bw, int r0,
+                                              int t) {
+  float d[2][32];
+  zero(d[0]);
+  zero(d[1]);
+  chunk_mma<T, 2, kLoOff, 16 * kBP>(d, stage + kWOff<T>, 0, smem_u32(stage) + pix0 * 16, bw, r0, t);
+  add_to(acc[0], d[0]);
+  add_to(acc[1], d[1]);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3d_packw_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                    T* __restrict__ y, int D, int H, int W, int C, int F, int tiles_w, int f_blocks) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [3 kh][kCK][3 kw][kBF]
-  float* xs = ws + kWElems;                     // [kCK][kXH][kXW], channel stride kXC
-  float* es = xs + kXElems;                     // [kWarps][2 kw][kFT][kEStride]
-
+conv3d_packw_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b, T* __restrict__ y,
+                    int D, int H, int W, int C, int F, int f_blocks, int tiles_w, int bw, int piece_x, int piece_w) {
+  extern __shared__ __align__(128) char smem[];
+  constexpr int kCK = chunk_channels<T>();
   const int tid = threadIdx.x;
   const int lane = tid % 32;
-  const int warp = tid / 32;
-  float* ebuf = es + warp * 2 * kFT * kEStride;
+  const int wq = (tid / 32) % 4;
+  const int pix0 = 128 * (tid / 128);
+  const int r0 = 16 * wq + lane / 4;
+  const int t = lane % 4;
 
-  const int h0 = (blockIdx.x / tiles_w) * kTH;
-  const int w0 = (blockIdx.x % tiles_w) * kTW;
+  const int th = kPix / bw;
+  const Brick br{static_cast<int>(blockIdx.x / tiles_w) * th, static_cast<int>(blockIdx.x % tiles_w) * (bw - 2), bw,
+                 th, kBP};
   const int d = blockIdx.y;
   const int n = blockIdx.z / f_blocks;
-  const int f0 = (blockIdx.z % f_blocks) * kBF;
+  const int f0 = (blockIdx.z % f_blocks) * kBM;
+  // depth taps whose input plane d + kd - 1 is inside the volume
+  const int kd_first = d == 0 ? 1 : 0;
+  const int kd_last = d == D - 1 ? 1 : 2;
+  const int nch = (C + kCK - 1) / kCK;
+  const int total = (kd_last - kd_first + 1) * nch;
 
-  float out[kTH][kFT];
-#pragma unroll
-  for (int r = 0; r < kTH; ++r)
-#pragma unroll
-    for (int t = 0; t < kFT; ++t) out[r][t] = 0.f;
+  auto issue = [&](int s) {
+    if (s < total) {
+      const int kd = kd_first + s / nch;
+      const int c0 = (s % nch) * kCK;
+      char* st = smem + (s % kStages) * kStageBytes<T>;
+      load_brick<T>(st, x, static_cast<int64_t>(n) * D + d + kd - 1, H, W, C, c0, br, piece_x, tid);
+      load_weights<T>(st + kWOff<T>, w, C, F, c0, f0, 1 << kd, true, piece_w, tid);
+    }
+    cp_async_commit();
+  };
 
+  float acc[2][32];
+  zero(acc[0]);
+  zero(acc[1]);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
 #pragma unroll 1
-  for (int kd = 0; kd < 3; ++kd) {
-    const int zd = d + kd - 1;
-    if (zd < 0 || zd >= D) continue;  // the same for the whole block
-
-    float z[kTH][3][kFT];
-#pragma unroll
-    for (int r = 0; r < kTH; ++r)
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw)
-#pragma unroll
-        for (int t = 0; t < kFT; ++t) z[r][kw][t] = 0.f;
-
-    for (int c0 = 0; c0 < C; c0 += kCK) {
-      // input rows of plane zd; consecutive threads read consecutive channels
-      for (int e = tid; e < kCK * kXH * kXW; e += kThreads) {
-        const int c = e % kCK;
-        const int r = e / kCK;
-        const int jw = r % kXW;
-        const int hh = r / kXW;
-        const int yh = h0 + hh - 1;
-        const int xw = w0 + jw - 1;
-        const int ch = c0 + c;
-        float v = 0.f;
-        if (yh >= 0 && yh < H && xw >= 0 && xw < W && ch < C) {
-          const int64_t voxel = ((static_cast<int64_t>(n) * D + zd) * H + yh) * static_cast<int64_t>(W) + xw;
-          v = to_f32(x[voxel * C + ch]);
-        }
-        xs[c * kXC + hh * kXW + jw] = v;
-      }
-      // packed weight slice of depth tap kd; e == ((kh * kCK + c) * 3 + kw) * kBF + f
-      for (int e = tid; e < kWElems; e += kThreads) {
-        const int f = e % kBF;
-        int r = e / kBF;
-        const int kw = r % 3;
-        r /= 3;
-        const int c = r % kCK;
-        const int kh = r / kCK;
-        float v = 0.f;
-        if (c0 + c < C && f0 + f < F)
-          v = to_f32(w[(static_cast<int64_t>((kd * 3 + kh) * 3 + kw) * C + c0 + c) * F + f0 + f]);
-        ws[e] = v;
-      }
-      __syncthreads();
-
-      // z[(r, lane), (kw, warp's features)] += P[(r, lane), (kh, c)] * Wp[(kh, c), (kw, f)]
-#pragma unroll 1
-      for (int kh = 0; kh < 3; ++kh) {
-        const float* xrow = xs + kh * kXW + lane;
-        const float* wrow = ws + kh * kCK * 3 * kBF + warp * kFT;
-#pragma unroll
-        for (int c = 0; c < kCK; ++c) {
-          float a[kTH];
-#pragma unroll
-          for (int r = 0; r < kTH; ++r) a[r] = xrow[c * kXC + r * kXW];
-#pragma unroll
-          for (int kw = 0; kw < 3; ++kw) {
-            const float4 bv = *reinterpret_cast<const float4*>(wrow + (c * 3 + kw) * kBF);
-#pragma unroll
-            for (int r = 0; r < kTH; ++r) {
-              z[r][kw][0] = fmaf(a[r], bv.x, z[r][kw][0]);
-              z[r][kw][1] = fmaf(a[r], bv.y, z[r][kw][1]);
-              z[r][kw][2] = fmaf(a[r], bv.z, z[r][kw][2]);
-              z[r][kw][3] = fmaf(a[r], bv.w, z[r][kw][3]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // kw-shift epilogue: out[r, j] += z[r, j, kw 0] + z[r, j+1, kw 1] + z[r, j+2, kw 2];
-    // the neighbours' columns come through this warp's buffer
-#pragma unroll
-    for (int r = 0; r < kTH; ++r) {
-#pragma unroll
-      for (int t = 0; t < kFT; ++t) {
-        ebuf[t * kEStride + lane] = z[r][1][t];
-        ebuf[(kFT + t) * kEStride + lane] = z[r][2][t];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int t = 0; t < kFT; ++t)
-        out[r][t] += z[r][0][t] + ebuf[t * kEStride + lane + 1] + ebuf[(kFT + t) * kEStride + lane + 2];
-      __syncwarp();
-    }
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<kStages - 2>();
+    char* st = smem + (s % kStages) * kStageBytes<T>;
+    if constexpr (Elem<T>::kSplit) split_brick(st, kLoOff, br, tid);
+    fence_async_smem();
+    __syncthreads();
+    issue(s + kStages - 1);
+    compute_stage<T>(acc, st, pix0, bw, r0, t);
   }
+  cp_async_wait<0>();
 
-  const int xw = w0 + lane;
-  if (lane >= kTW || xw >= W) return;
-  float bias[kFT];
-#pragma unroll
-  for (int t = 0; t < kFT; ++t) {
-    const int f = f0 + warp * kFT + t;
-    bias[t] = (b != nullptr && f < F) ? to_f32(b[f]) : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < kTH; ++r) {
-    const int yh = h0 + r;
-    if (yh >= H) continue;
-    const int64_t voxel = ((static_cast<int64_t>(n) * D + d) * H + yh) * static_cast<int64_t>(W) + xw;
-    T* dst = y + voxel * F;
-#pragma unroll
-    for (int t = 0; t < kFT; ++t) {
-      const int f = f0 + warp * kFT + t;
-      if (f < F) dst[f] = from_f32<T>(out[r][t] + bias[t]);
-    }
-  }
+  const int64_t plane = static_cast<int64_t>(n) * D + d;
+  store_tile<T>(y, acc[0], b, plane, H, W, F, f0, pix0, br, wq, lane);
+  store_tile<T>(y, acc[1], b, plane, H, W, F, f0, pix0 + 64, br, wq, lane);
 }
 
 template <typename T>
 int launch(const void* x, const void* w, const void* b, void* y, int64_t N, int64_t D, int64_t H, int64_t W,
            int64_t C, int64_t F, void* stream) {
   if (N <= 0 || D <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0) return cudaErrorInvalidValue;
-  const int64_t tiles_w = (W + kTW - 1) / kTW;
-  const int64_t tiles_h = (H + kTH - 1) / kTH;
-  const int64_t f_blocks = (F + kBF - 1) / kBF;
-  if (tiles_w * tiles_h > INT_MAX || D > 65535 || N * f_blocks > 65535 || H > INT_MAX || W > INT_MAX ||
-      C > INT_MAX || F > INT_MAX)
+  const int bw = brick_width(W);
+  const int64_t tiles_w = (W + bw - 3) / (bw - 2);
+  const int64_t tiles = tiles_w * ((H + kPix / bw - 1) / (kPix / bw));
+  const int64_t f_blocks = (F + kBM - 1) / kBM;
+  if (N * D * H * W > INT_MAX || tiles > INT_MAX || D > 65535 || N * f_blocks > 65535 || C > INT_MAX ||
+      F > INT_MAX)
     return cudaErrorInvalidValue;
   auto kernel = conv3d_packw_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<T>);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(tiles_w * tiles_h), static_cast<unsigned>(D),
-                  static_cast<unsigned>(N * f_blocks));
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(D), static_cast<unsigned>(N * f_blocks));
+  kernel<<<grid, kThreads, kSmemBytes<T>, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b), static_cast<T*>(y),
       static_cast<int>(D), static_cast<int>(H), static_cast<int>(W), static_cast<int>(C), static_cast<int>(F),
-      static_cast<int>(tiles_w), static_cast<int>(f_blocks));
+      static_cast<int>(f_blocks), static_cast<int>(tiles_w), bw, piece_bytes(C, Elem<T>::kSize),
+      piece_bytes(F, Elem<T>::kSize));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,5 +188,5 @@ extern "C" const char* conv3d_packw_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of one block, for the build report.
-extern "C" int conv3d_packw_smem_bytes() { return kSmemBytes; }
+// Dynamic shared memory of one block (f32), for the build report.
+extern "C" int conv3d_packw_smem_bytes() { return kSmemBytes<float>; }

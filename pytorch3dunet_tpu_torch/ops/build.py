@@ -2,14 +2,17 @@
 
 Each source under `csrc/` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface. The library is named by a sha256 of its
-source, so an edited kernel is rebuilt and a stale one is never loaded; it goes
-to `build/torch_kernels/` in the checkout (`build/` is git-ignored). Nothing is
+source, of every header it includes with quotes and of the compiler flags, so
+an edited kernel or shared header is rebuilt and a stale library is never
+loaded; it goes to `build/torch_kernels/` in the checkout (`build/` is
+git-ignored). Nothing is
 compiled while a module is imported: the first launch calls `load`.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -62,11 +65,33 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(path: Path) -> list[Path]:
+    """The headers that `path` includes with quotes, directly or through
+    another such header, resolved next to the including file; sorted."""
+    found, todo = set(), [path]
+    while todo:
+        including = todo.pop()
+        for match in _INCLUDE.findall(including.read_bytes()):
+            header = (including.parent / match.decode()).resolve()
+            if header.exists() and header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     """Where the library built from `csrc/<name>.cu` lives: named by the
-    sha256 of the source and of the compiler flags."""
-    digest = hashlib.sha256(source_path(name).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    sha256 of the source, of every header it includes and of the compiler
+    flags."""
+    source = source_path(name)
+    digest = hashlib.sha256(source.read_bytes())
+    for header in included_headers(source):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def find_nvcc() -> str:

@@ -323,6 +323,43 @@ def _check_library_named_by_source_hash(tmp_path, monkeypatch, name):
     assert build.library_path(name) != path
 
 
+@pytest.mark.parametrize("name", ["conv3d_im2col", "conv3d_packw"])
+def test_library_path_follows_included_headers(tmp_path, monkeypatch, name):
+    for source in build.CSRC_DIR.iterdir():
+        (tmp_path / source.name).write_bytes(source.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert [h.name for h in build.included_headers(build.source_path(name))] == ["conv3d_tc.cuh"]
+    path = build.library_path(name)
+    # files the source does not include leave the name alone
+    (tmp_path / "unrelated.cuh").write_text("// not included\n")
+    (tmp_path / "conv3d_fwd.cu").write_bytes(build.source_path("conv3d_fwd").read_bytes() + b"\n// edited\n")
+    assert build.library_path(name) == path
+    # an edit of the shared header renames the library, so it is rebuilt
+    header = tmp_path / "conv3d_tc.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert build.library_path(name) != path
+
+
+def test_library_path_follows_nested_includes_and_flags(tmp_path, monkeypatch):
+    # a nested include resolves next to the header that names it
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "k.cu").write_text('#include "inc/a.cuh"\n#include <cstdint>\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text("// leaf\n")
+    (tmp_path / "b.cuh").write_text("// same name, not included\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    inc = (tmp_path / "inc").resolve()
+    assert build.included_headers(build.source_path("k")) == [inc / "a.cuh", inc / "b.cuh"]
+    path = build.library_path("k")
+    (tmp_path / "b.cuh").write_text("// edited, still not included\n")
+    assert build.library_path("k") == path
+    (tmp_path / "inc" / "b.cuh").write_text("// leaf, edited\n")
+    edited = build.library_path("k")
+    assert edited != path
+    monkeypatch.setattr(build, "NVCC_FLAGS", [*build.NVCC_FLAGS, "-I/usr/local/cutlass/include"])
+    assert build.library_path("k") != edited
+
+
 def test_every_kernel_has_a_source_and_entry_points():
     assert set(build.SIGNATURES) == set(conv3d.KERNELS.values()) == set(conv3d.launches)
     for name, entries in build.SIGNATURES.items():
