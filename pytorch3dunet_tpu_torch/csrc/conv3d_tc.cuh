@@ -1,9 +1,9 @@
-// Tensor-core core shared by the 3x3x3 conv kernels K1 (conv3d_im2col.cu) and
-// K3 (conv3d_packw.cu) on Hopper (sm_90a): the staging ring, the 3xTF32 split,
-// the wgmma wrappers and the output store.
+// Tensor-core core shared by the 3x3x3 conv kernels on Hopper (sm_90a): K1
+// (conv3d_im2col.cu), K2 (conv3d_fwd.cu) and K3 (conv3d_packw.cu). The staging
+// ring, the 3xTF32 split, the wgmma wrappers and the output stores.
 //
-// Both kernels are implicit GEMMs on `wgmma.mma_async` with the output
-// features on M (64 per warpgroup) and the output pixels on N:
+// K1 and K3 are implicit GEMMs on `wgmma.mma_async` with the output features on
+// M (64 per warpgroup) and the output pixels on N:
 //   D^T[f, pixel] += W^T[f, (tap, c)] . X[(tap, c), pixel]
 // - A (the weights) comes from registers. A chunk of the weights is staged raw
 //   in shared memory by cp.async and each thread reads its fragment with plain
@@ -21,6 +21,17 @@
 //   from VMEM); no im2col copy exists anywhere. Output pixels are indexed on
 //   the brick's width BW, so the last 2 columns of each tile row are computed
 //   and dropped (BW = 32: 6.25% of the MMAs).
+// K2 turns the GEMM around, for the small F of a UNet's first levels (an m64
+// feature tile would leave 75% of its rows empty at F = 16):
+//   D[pixel, f] += X[pixel, (tap, c)] . W[(tap, c), f]
+// - A (64 output pixels) is the same brick by descriptor: the no-swizzle
+//   K-major layout is valid for A exactly as for B, at the same shifted starts.
+// - B (the weights, N = F rounded up to 16, 32 or 64) is staged K-major by
+//   `load_weights_kmajor` from a (3, 3, 3, F, C) copy, and split in shared
+//   memory like the brick; both operands come by descriptor (`wgmma_ss`).
+// - The fragment holds two pixels x feature pairs a thread, so the NDHWC output
+//   takes 8-byte stores (`store_pixels`).
+// Common to all three:
 // - f32 runs 3xTF32: x = hi + lo with hi = rna_tf32(x), lo = rna_tf32(x - hi),
 //   and A.B ~ A_hi.B_hi + A_hi.B_lo + A_lo.B_hi, three tf32 wgmmas into one f32
 //   accumulator (a single TF32 pass misses the 1e-4 bound that the kernels are
@@ -35,9 +46,10 @@
 //   loads. The kernels keep kStages stages in flight: the copies of stage
 //   t + kStages - 1 are issued after the barrier of stage t and overlap its
 //   wgmmas.
-// - Within a stage the 9 taps are 9 k-steps; the A fragments of tap + 1 are
-//   loaded and split while the wgmmas of tap run. Each staged chunk is summed
-//   in registers of its own and added to the running f32 sum (`chunk_mma`).
+// - Each staged chunk is summed in registers of its own and added to the
+//   running f32 sum (`chunk_mma` in K1 and K3; K2 likewise). In K1 and K3,
+//   within a stage the 9 taps are 9 k-steps; the A fragments of tap + 1 are
+//   loaded and split while the wgmmas of tap run.
 
 #pragma once
 
@@ -178,19 +190,21 @@ __device__ __forceinline__ void load_brick(char* dst, const T* __restrict__ x, i
   }
 }
 
+// f32: splits the 16 bytes at `p` into hi (in place) and lo (at p + lo_off).
+__device__ __forceinline__ void split16(char* p, int lo_off) {
+  float4 v = *reinterpret_cast<float4*>(p);
+  uint4 hi, lo;
+  split_tf32(v.x, hi.x, lo.x);
+  split_tf32(v.y, hi.y, lo.y);
+  split_tf32(v.z, hi.z, lo.z);
+  split_tf32(v.w, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(p) = hi;
+  *reinterpret_cast<uint4*>(p + lo_off) = lo;
+}
+
 // f32: splits the chunks this thread copied into hi (in place) and lo (at +lo_off).
 __device__ __forceinline__ void split_brick(char* brick, int lo_off, const Brick& br, int tid) {
-  for (int e = tid; e < 2 * br.bp; e += kThreads) {
-    const int off = ((e & 1) * br.bp + (e >> 1)) * 16;
-    float4 v = *reinterpret_cast<float4*>(brick + off);
-    uint4 hi, lo;
-    split_tf32(v.x, hi.x, lo.x);
-    split_tf32(v.y, hi.y, lo.y);
-    split_tf32(v.z, hi.z, lo.z);
-    split_tf32(v.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(brick + off) = hi;
-    *reinterpret_cast<uint4*>(brick + lo_off + off) = lo;
-  }
+  for (int e = tid; e < 2 * br.bp; e += kThreads) split16(brick + ((e & 1) * br.bp + (e >> 1)) * 16, lo_off);
 }
 
 // ---- the weights ---------------------------------------------------------------
@@ -220,6 +234,35 @@ __device__ __forceinline__ void load_weights(char* dst, const T* __restrict__ w,
     const int slot = compact ? 0 : kd;
     copy16(dst + (((slot * 9 + tap) * kCK + c) * kFS + chunk * kGroupElems) * Elem<T>::kSize,
               reinterpret_cast<const char*>(src), valid, piece, w);
+  }
+}
+
+// K2's B operand. Issues this thread's copies of wk[kd, tap, f0 + r, c0 .. c0 +
+// chunk) (wk (3, 3, 3, F, C): the weights K-major) into `dst`, 9 taps x 2
+// channel groups x N rows of 16 bytes: row r of group cg of tap at
+// ((tap * 2 + cg) * N + r) * 16, so one tap is a K-major N x 32-byte tile (LBO
+// 16 N, SBO 128). Rows of features >= F and channels >= C are zeros.
+template <typename T, int N>
+__device__ __forceinline__ void load_weights_kmajor(char* dst, const T* __restrict__ wk, int C, int F, int c0,
+                                                    int f0, int kd, int piece, int tid) {
+  constexpr int kGroupElems = 16 / Elem<T>::kSize;
+  for (int e = tid; e < 9 * N * 2; e += kThreads) {
+    const int cg = e & 1;
+    const int r = (e >> 1) % N;
+    const int tap = (e >> 1) / N;
+    const int ch = c0 + cg * kGroupElems;
+    const int valid = f0 + r < F ? min(C - ch, kGroupElems) * Elem<T>::kSize : 0;
+    const T* src = wk + (static_cast<int64_t>(kd * 9 + tap) * F + f0 + r) * C + ch;
+    copy16(dst + ((tap * 2 + cg) * N + r) * 16, reinterpret_cast<const char*>(src), valid, piece, wk);
+  }
+}
+
+// f32: splits the weight chunks this thread copied (`load_weights_kmajor`).
+template <int N>
+__device__ __forceinline__ void split_weights(char* ws, int lo_off, int tid) {
+  for (int e = tid; e < 9 * N * 2; e += kThreads) {
+    const int tap = (e >> 1) / N;
+    split16(ws + ((tap * 2 + (e & 1)) * N + (e >> 1) % N) * 16, lo_off);
   }
 }
 
@@ -296,6 +339,38 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4
                : TC_ACC32(d)
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+
+#define TC_ACC8(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define TC_ACC16(d)                                                                                           \
+  TC_ACC8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define TC_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define TC_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// K2: d (64 x N f32) = a (64 x k, descriptor, K-major) . b (k x N, descriptor,
+// K-major) + (accumulate ? d : 0), for N = 2 x the size of d: k8 tf32, k16 bf16
+template <typename T>
+__device__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int accumulate);
+template <typename T>
+__device__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate);
+template <typename T>
+__device__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate);
+
+#define TC_WGMMA_SS(T, NR, NN, KIND, TAIL, REGS, ACC, IA, IB, IP)                                             \
+  template <>                                                                                                \
+  __device__ __forceinline__ void wgmma_ss<T>(float(&d)[NR], uint64_t a, uint64_t b, int accumulate) {       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"                                            \
+                 "wgmma.mma_async.sync.aligned.m64n" #NN KIND " " REGS ", %" #IA ", %" #IB ", p, 1, 1" TAIL  \
+                 ";\n}\n"                                                                                    \
+                 : ACC(d)                                                                                    \
+                 : "l"(a), "l"(b), "r"(accumulate));                                                         \
+  }
+TC_WGMMA_SS(float, 8, 16, "k8.f32.tf32.tf32", "", TC_REGS8, TC_ACC8, 8, 9, 10)
+TC_WGMMA_SS(float, 16, 32, "k8.f32.tf32.tf32", "", TC_REGS16, TC_ACC16, 16, 17, 18)
+TC_WGMMA_SS(float, 32, 64, "k8.f32.tf32.tf32", "", TC_REGS32, TC_ACC32, 32, 33, 34)
+TC_WGMMA_SS(__nv_bfloat16, 8, 16, "k16.f32.bf16.bf16", ", 0, 0", TC_REGS8, TC_ACC8, 8, 9, 10)
+TC_WGMMA_SS(__nv_bfloat16, 16, 32, "k16.f32.bf16.bf16", ", 0, 0", TC_REGS16, TC_ACC16, 16, 17, 18)
+TC_WGMMA_SS(__nv_bfloat16, 32, 64, "k16.f32.bf16.bf16", ", 0, 0", TC_REGS32, TC_ACC32, 32, 33, 34)
+#undef TC_WGMMA_SS
 
 // d += A . X over one k-step: 3xTF32 in f32 (x's hi at desc, lo at desc_lo)
 __device__ __forceinline__ void mma_step(float (&d)[32], const FragF32& fr, uint64_t desc, uint64_t desc_lo) {
@@ -399,6 +474,52 @@ __device__ __forceinline__ void store_tile(T* __restrict__ y, const float (&d)[3
       for (int i = 0; i < 2; ++i) {
         const int f = f0 + 16 * wq + g + 8 * i;
         if (f < F) out[f] = from_f32<T>(d[4 * j + 2 * i + e] + bias[i]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out, float v0, float v1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* out, float v0, float v1) {
+  *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* out, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+}
+
+// K2: writes d (brick pixels m0 + 16 wq + g (+8) by features f0 + 8 j + 2 t
+// (+1), j < N / 8) with the bias to output plane `plane` (n * D + d) of y: a
+// thread's two features are adjacent in NDHWC, one 8-byte store (4 in bf16)
+// when F is even. Drops the tile's 2 wrap columns, rows past the tile's TH and
+// everything outside the volume or past F.
+template <typename T, int N>
+__device__ __forceinline__ void store_pixels(T* __restrict__ y, const float (&d)[N / 2], const T* __restrict__ b,
+                                             int64_t plane, int H, int W, int F, int f0, int m0, const Brick& br,
+                                             int wq, int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + 16 * wq + g + 8 * i;
+    const int rr = m / br.bw;
+    const int jj = m - rr * br.bw;
+    const int h = br.h0 + rr;
+    const int w = br.w0 + jj;
+    if (rr >= br.th || jj >= br.bw - 2 || h >= H || w >= W) continue;
+    T* out = y + ((plane * H + h) * W + w) * F;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int f = f0 + 8 * j + 2 * t;
+      const float v0 = d[4 * j + 2 * i] + (b != nullptr && f < F ? to_f32(b[f]) : 0.f);
+      const float v1 = d[4 * j + 2 * i + 1] + (b != nullptr && f + 1 < F ? to_f32(b[f + 1]) : 0.f);
+      if (f + 1 < F && F % 2 == 0) {
+        store_pair<T>(out + f, v0, v1);
+      } else {
+        if (f < F) out[f] = from_f32<T>(v0);
+        if (f + 1 < F) out[f + 1] = from_f32<T>(v1);
       }
     }
   }

@@ -38,6 +38,8 @@ SIGNATURES = {
         "conv3d_fwd_f32": (_CONV_ARGS, ctypes.c_int),
         "conv3d_fwd_bf16": (_CONV_ARGS, ctypes.c_int),
         "conv3d_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "conv3d_fwd_smem_bytes": ([], ctypes.c_int),
+        "conv3d_fwd_issued_macs": ([_I64] * 6 + [ctypes.c_int], ctypes.c_int64),
     },
     "conv3d_packw": {
         "conv3d_packw_f32": (_CONV_ARGS, ctypes.c_int),

@@ -6,7 +6,8 @@ plain versions, and the conv's autograd.
 channels-last, w (3, 3, 3, C, F), b (F,) or None -> (N, D, H, W, F) in x's
 dtype, f32 accumulation, bias fused. Its `variant` names the Pallas tiling; on
 CUDA each tiling is its own kernel:
-- "roll" (K2) -> `csrc/conv3d_fwd.cu`, the conv forward by default;
+- "roll" (K2) -> `csrc/conv3d_fwd.cu`, the conv forward by default, handed
+  the weights K-major (`kmajor_weight`);
 - "im2col" (K1) -> `csrc/conv3d_im2col.cu`, the tap-folded forward: every conv
   with F >= 64 when P3DUNET_TAPFOLD=1 (`forward_variant`);
 - "packw" (K3) -> `csrc/conv3d_packw.cu`, the conv's input gradient.
@@ -110,7 +111,7 @@ def conv3d_fwd_reference(x, w, b=None):
 def conv3d_fwd(x, w, b=None, variant: str | None = None):
     """Fused 3x3x3 conv forward on (N, D, H, W, C) -> (N, D, H, W, F).
 
-    `b=None` means zeros; `w` and `b` are cast to x's dtype. On CUDA the
+    `b=None` means no bias; `w` and `b` are cast to x's dtype. On CUDA the
     kernel of `variant` runs, on the current stream; on the CPU the plain
     version does. `variant=None` is the conv forward's own choice,
     `forward_variant(F)`. No autograd: training goes through `Conv3dFunction`."""
@@ -131,11 +132,10 @@ def conv3d_fwd(x, w, b=None, variant: str | None = None):
     N, D, H, W, C = x.shape
     Fo = w.shape[-1]
     name = KERNELS[variant]
-    w = w.to(x.dtype).contiguous()
+    w = w.to(x.dtype)
+    w = kmajor_weight(w) if variant == "roll" else w.contiguous()
     if b is not None:
         b = b.to(x.dtype).contiguous()
-    elif variant == "roll":  # K2 always reads a bias; K1 and K3 take a null one
-        b = torch.zeros(Fo, dtype=x.dtype, device=x.device)
     y = torch.empty((N, D, H, W, Fo), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -151,6 +151,13 @@ def conv3d_fwd(x, w, b=None, variant: str | None = None):
                            f"{message.decode()} (cudaError {err})")
     launches[name] += 1
     return y
+
+
+def kmajor_weight(w):
+    """w (3, 3, 3, C, F) -> wk (3, 3, 3, F, C), contiguous: K2's weights
+    K-major, as its tensor cores read them (the TF32 B operand of `wgmma`
+    comes from shared memory K-major only)."""
+    return w.transpose(3, 4).contiguous()
 
 
 def flip_weight(w):

@@ -26,23 +26,35 @@ def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in entries.items()}
 
 
-def _is_jax_checkpoint(path) -> bool:
-    """The JAX package's npz checkpoints are zips holding `__meta__.npy`
+def _jax_checkpoint_names(path) -> list[str] | None:
+    """The entry names of a JAX-format checkpoint, None for any other file.
+    The JAX package's npz checkpoints are zips holding `__meta__.npy`
     (pytorch3dunet_tpu/utils/checkpoint.py `_is_torch_checkpoint`)."""
     try:
         with zipfile.ZipFile(path) as z:
-            return "__meta__.npy" in z.namelist()
+            names = z.namelist()
     except zipfile.BadZipFile:
-        return False
+        return None
+    return names if "__meta__.npy" in names else None
+
+
+# the leaves of a checkpoint's `ema_state_dict` (written by `trainer.ema_decay`)
+_EMA_PREFIX = "__tree__/ema_state_dict/"
 
 
 def refuse_jax_checkpoint(path) -> None:
-    """Raises, with the convert hint, when `path` is a JAX-format checkpoint."""
-    if _is_jax_checkpoint(path):
-        raise ValueError(
-            f"{path} is a JAX-format checkpoint; convert it first with "
-            f"`convert3dunet --config <config.yml> -i {path} -o <out>.pytorch --to torch`"
-        )
+    """Raises, with the convert hint, when `path` is a JAX-format checkpoint.
+    When it carries EMA weights, the message says that the converted file
+    holds the raw weights, which the JAX predictor does not use."""
+    names = _jax_checkpoint_names(path)
+    if names is None:
+        return
+    message = (f"{path} is a JAX-format checkpoint; convert it first with "
+               f"`convert3dunet --config <config.yml> -i {path} -o <out>.pytorch --to torch`")
+    if any(name.startswith(_EMA_PREFIX) for name in names):
+        message += (". It carries EMA weights (`ema_state_dict`), which predict3dunet predicts with; the "
+                    "converted file carries the raw weights (`model_state_dict`), not the EMA weights")
+    raise ValueError(message)
 
 
 def load_weights(model: torch.nn.Module, path) -> None:

@@ -323,7 +323,7 @@ def _check_library_named_by_source_hash(tmp_path, monkeypatch, name):
     assert build.library_path(name) != path
 
 
-@pytest.mark.parametrize("name", ["conv3d_im2col", "conv3d_packw"])
+@pytest.mark.parametrize("name", ["conv3d_im2col", "conv3d_packw", "conv3d_fwd"])
 def test_library_path_follows_included_headers(tmp_path, monkeypatch, name):
     for source in build.CSRC_DIR.iterdir():
         (tmp_path / source.name).write_bytes(source.read_bytes())
@@ -332,7 +332,8 @@ def test_library_path_follows_included_headers(tmp_path, monkeypatch, name):
     path = build.library_path(name)
     # files the source does not include leave the name alone
     (tmp_path / "unrelated.cuh").write_text("// not included\n")
-    (tmp_path / "conv3d_fwd.cu").write_bytes(build.source_path("conv3d_fwd").read_bytes() + b"\n// edited\n")
+    other = "conv3d_packw" if name == "conv3d_fwd" else "conv3d_fwd"
+    (tmp_path / f"{other}.cu").write_bytes(build.source_path(other).read_bytes() + b"\n// edited\n")
     assert build.library_path(name) == path
     # an edit of the shared header renames the library, so it is rebuilt
     header = tmp_path / "conv3d_tc.cuh"

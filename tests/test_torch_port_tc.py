@@ -1,23 +1,30 @@
 """The f32 arithmetic of the tensor-core conv kernels (K1 `csrc/conv3d_im2col.cu`,
-K3 `csrc/conv3d_packw.cu`), emulated in plain PyTorch on the CPU.
+K2 `csrc/conv3d_fwd.cu`, K3 `csrc/conv3d_packw.cu`), emulated in plain PyTorch
+on the CPU.
 
 The kernels run f32 convs on TF32 tensor cores as 3xTF32: each operand is
 split into a TF32 high part (round to nearest on the f32 bit pattern, 10
 mantissa bits kept) and the TF32-rounded remainder, and A.B is taken as
 A_hi.B_hi + A_hi.B_lo + A_lo.B_hi, three products that are exact in f32, summed
 in f32. These tests pin that arithmetic argument, not the kernels: the
-emulation below is defined here and runs no code of the port, so it cannot
-notice a kernel that drops a product or falls back to one TF32 pass. At the
-same inputs one TF32 pass misses the 1e-4 bound, the three-pass sum meets it
-with orders to spare. The guard on the card is `chip_smoke.py`'s
-`TOL[torch.float32]` (1e-4 of max|plain|), held at every path and edge shape
-of K1 and K3 (phases 3, 8 and 10): one TF32 pass would fail it there.
+emulation below is defined here and runs no code of the port but K2's weight
+layout (`kmajor_weight`), so it cannot notice a kernel that drops a product or
+falls back to one TF32 pass. At the same inputs one TF32 pass misses the 1e-4
+bound, the three-pass sum meets it with orders to spare, at K2's own shapes
+too (C = 1 and F = 16, F = 32). K2's operand arrangement (output pixels x
+(tap, channel) patches against the (3, 3, 3, F, C) K-major weights, each depth
+tap's 8-channel chunk summed apart) is emulated as well. The guard on the card
+is `chip_smoke.py`'s `TOL[torch.float32]` (1e-4 of max|plain|), held at every
+path and edge shape of K1, K2 and K3 (phases 3, 8 and 10): one TF32 pass would
+fail it there.
 """
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+
+from pytorch3dunet_tpu_torch.ops.conv3d import conv3d_fwd_reference, kmajor_weight
 
 TOL = 1e-4  # chip_smoke.py TOL[torch.float32]: max |kernel - plain| <= TOL * max |plain|
 
@@ -67,7 +74,9 @@ def conv_inputs(shape, c_out, seed):
     return x, w
 
 
-SHAPES = [((1, 6, 12, 12, 8), 16), ((1, 4, 10, 10, 32), 64), ((1, 4, 8, 8, 64), 64)]
+SHAPES = [((1, 6, 12, 12, 8), 16), ((1, 4, 10, 10, 32), 64), ((1, 4, 8, 8, 64), 64),
+          # K2's level-0 shapes, narrowed: C = 1 -> F = 16, F = 32 from C = 16 and 96
+          ((1, 6, 12, 12, 1), 16), ((1, 4, 10, 10, 16), 32), ((1, 4, 10, 10, 96), 32)]
 
 
 def _rel_err(got, want):
@@ -110,3 +119,35 @@ def test_three_tf32_passes_meet_the_f32_bound(shape, c_out, seed):
 def test_one_tf32_pass_misses_the_f32_bound(shape, c_out, seed):
     x, w = conv_inputs(shape, c_out, seed)
     assert _rel_err(conv_emulated(x, w, 1), conv_float64(x, w)) > TOL
+
+
+def conv_k2_emulated(x, w, chunk=8):
+    """The conv in K2's operand arrangement, in f32: A = output pixels x (tap,
+    channel) patches of one depth tap and one `chunk` of channels, B = the
+    same taps and channels of the K-major weights (F rows), one 3xTF32 product
+    per (kd, chunk) summed apart and added to the running f32 sum in the
+    kernel's order (kd, then chunks)."""
+    n, d, h, w_, c = x.shape
+    wk = kmajor_weight(w)  # (3, 3, 3, F, C)
+    f = wk.shape[3]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    acc = torch.zeros(n * d * h * w_, f)
+    for kd in range(3):
+        for c0 in range(0, c, chunk):
+            a = torch.cat([xp[:, kd:kd + d, kh:kh + h, kw:kw + w_, c0:c0 + chunk] for kh in range(3)
+                           for kw in range(3)], -1).reshape(n * d * h * w_, -1)
+            b = wk[kd, :, :, :, c0:c0 + chunk].reshape(9, f, -1).transpose(0, 1).reshape(f, -1)
+            a_hi, a_lo = split_tf32(a)
+            b_hi, b_lo = split_tf32(b.contiguous())
+            acc = acc + (a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T)
+    return acc.reshape(n, d, h, w_, f)
+
+
+@pytest.mark.parametrize("shape,c_out", SHAPES)
+def test_k2_operand_arrangement_matches_the_plain_conv(shape, c_out):
+    x, w = conv_inputs(shape, c_out, 2)
+    b = torch.from_numpy(np.random.RandomState(3).rand(c_out).astype(np.float32) - 0.5)
+    assert kmajor_weight(w).shape == (3, 3, 3, c_out, shape[-1]) and kmajor_weight(w).is_contiguous()
+    want = conv3d_fwd_reference(x, w, b)
+    got = conv_k2_emulated(x, w) + b
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOL
