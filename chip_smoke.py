@@ -62,6 +62,25 @@ forward on the im2col kernel (K1), and unset it after:
  14. times: K1 per shape against K2 at the same shape and cuDNN (TF32 off and
      on), the patch forward, predict_array, a train step with peak memory, and
      one forward's device time by kernel (torch.profiler).
+Phases 15-17 drive the device sweep (`DeviceSlidingWindowPredictor.predict_array`:
+one upload, the patch loop, normalization and stitching on the card, one
+download) on phase 4's volume:
+ 15. UNet3D, f32: (a) the geometry of
+     resources/3DUnet_confocal_boundary_tpu/test_config.yml (gaussian blend,
+     stride 40x85x85: 9 patches, 126 K2 launches) against the same sweep with
+     the plain conv; (b) assign on phase 4's grid against phase 4's host
+     predict_array; (c) (a) streamed in z-slabs against (a); (d) `patch_mode:
+     slab` (2 slabs of 145 planes); (e) one forward of a slab whose decoder
+     concat passes 2^31 elements, against the plain conv in depth chunks; wall
+     times and Mvoxel/s beside phase 5's host predict_array, peak memory, and
+     the device's busy share over a sweep of (a) (torch.profiler);
+ 16. the sweep of 15(a) with `model.dtype: bfloat16` (126 bf16 K2 launches)
+     against the same bf16 sweep with the plain conv and against 15(a);
+ 17. ResidualUNet3D in bfloat16 under P3DUNET_TAPFOLD=1, the geometry of
+     resources/3DUnet_lightsheet_boundary_tpu/test_config.yml (assign, phase 4's
+     grid; 14 K1 + 4 K2 bf16 launches per forward), against the same bf16 sweep
+     with the plain conv and against its f32 sweep, which is held to phase 11's
+     host output.
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -142,6 +161,22 @@ RES_MODEL = {"name": "ResidualUNet3D", "in_channels": 1, "out_channels": 1, "lay
              "num_groups": 8, "final_sigmoid": True}
 RES_LR_SCHEDULER = {"name": "ReduceLROnPlateau", "mode": "min", "factor": 0.2, "patience": 20}
 RES_TRAIN_STEPS, RES_VALIDATE_AFTER = 4, 4
+# resources/3DUnet_confocal_boundary_tpu/test_config.yml: an overlapping grid, gaussian blend
+TPU_STRIDE, TPU_BLEND = (40, 85, 85), "gaussian"
+SWEEP_RUNS = 3
+# the device sweep against the host loop on the same grid (both f32, the same
+# kernels; they differ in the order of the normalization's arithmetic), and
+# streamed against one-shot (the same cores, summed in another order)
+SWEEP_VS_HOST_TOL, STREAMED_TOL = 1e-4, 1e-5
+# a padded slab of 24.9 M voxels, past max_patch_voxels' default 2**24: the
+# 96 channels of its level-0 decoder concat hold 2.39e9 elements, past 2**31
+LARGE_SLAB = (176, 376, 376)
+# its GroupNorm's f32 statistics over 3e8 elements a group against float64,
+# relative to the output's max: an index past 2^31 that wrapped would be off by O(1)
+LARGE_GN_TOL = 1e-3
+# bf16 probabilities against the same bf16 sweep with the plain conv, and
+# against the f32 sweep: ceilings, the measured values are printed
+BF16_VS_PLAIN_TOL, BF16_VS_F32_TOL = 2e-2, 5e-2
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
 # bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -185,8 +220,13 @@ def with_tf32(fn):
 def reset_launches():
     from pytorch3dunet_tpu_torch.ops import conv3d
 
-    for name in conv3d.launches:
-        conv3d.launches[name] = 0
+    conv3d.reset_launches()
+
+
+def launches_by_dtype():
+    from pytorch3dunet_tpu_torch.ops import conv3d
+
+    return {name: dict(counts) for name, counts in conv3d.launches_by_dtype.items()}
 
 
 def conv_inputs(shape, c_out, dtype, bias, gen, device):
@@ -327,7 +367,7 @@ def profile_step(step, step_ms, top=12, tag="9 profile", what="one train step"):
     busy_ms = sum(by_name.values())
     if not busy_ms:
         log(f"[{tag}] the profiler recorded no device time")
-        return
+        return None
     log(f"[{tag}] {what}: device busy {busy_ms:.2f} ms of {step_ms:.2f} ms "
         f"({100 * busy_ms / step_ms:.1f}% busy) in {len(by_name)} kernel names")
     ours = [name for name in by_name if any(k in name for k in ("conv3d_fwd_kernel", "conv3d_packw_kernel",
@@ -335,6 +375,7 @@ def profile_step(step, step_ms, top=12, tag="9 profile", what="one train step"):
     others = sorted((name for name in by_name if name not in ours), key=by_name.get, reverse=True)
     for name in ours + others[:top]:
         log(f"[{tag}] {by_name[name]:9.2f} ms {100 * by_name[name] / busy_ms:5.1f}%  {name[:110]}")
+    return busy_ms / step_ms
 
 
 def residual_unet_phases(device, gen, volume, batches):
@@ -582,12 +623,242 @@ def residual_unet_phases(device, gen, volume, batches):
     finally:
         os.environ.pop("P3DUNET_TAPFOLD", None)
 
-    return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "predict_launches": predict_launches, "train_launches": train_launches,
+    return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "predict_launches": predict_launches,
+            "train_launches": train_launches, "predict_out": out,
             "k1_ms": sums["k1_ms"], "k1_plain_ms": sums["plain_ms"], "k1_plain_tf32_ms": sums["plain_tf32_ms"],
             "k1_library_ms": sums["library_ms"], "k2_same_ms": sums["k2_ms"], "k1_count": len(k1_times),
             "k1_bound": summed_bound([(shape, f, True) for _, shape, f in k1_shapes], tc_bound),
             "k1_bound_ffma": summed_bound([(shape, f, True) for _, shape, f in k1_shapes]),
             "k1_bf16_ms": sums["k1_bf16_ms"], "k1_bound_tc_bf16_ms": sums["bound_tc_bf16_ms"]}
+
+
+def device_sweep_phases(device, volume, host, res_host_out):
+    """Phases 15-17: the device sweep of `DeviceSlidingWindowPredictor` on the
+    synthetic volume, UNet3D in f32 and bf16 and ResidualUNet3D in bf16, each
+    path driven with the launch counts set to 0 just before it. `host` is phase
+    5's host predict_array ("out", "wall_s"), `res_host_out` phase 11's. Returns
+    the launches of each path by kernel and dtype."""
+    from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder, calculate_stats
+    from pytorch3dunet_tpu_torch.inference_device import detect_device_path
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops import conv3d
+    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
+    from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor, _plan_slab_grid
+
+    normalize, stats = detect_device_path(TRANSFORMER["raw"], calculate_stats(volume))
+    check(normalize == "standardize", f"the confocal transformer maps to {normalize!r} on the device")
+    mvoxels = np.prod(VOLUME) / 1e6
+    padded_plane = (VOLUME[1] + 2 * HALO[1]) * (VOLUME[2] + 2 * HALO[2])
+    patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+    launches = {}
+
+    def seeded(config):
+        # phase 4's and phase 11's weights: the seed before the model, then the GroupNorm affines
+        torch.manual_seed(SEED)
+        model = get_model(config)
+        randomize_group_norms(model, torch.Generator().manual_seed(SEED))
+        return model.to(device).eval()
+
+    def in_bf16(model, config):
+        bf16 = get_model({**config, "dtype": "bfloat16"})
+        bf16.load_state_dict(model.state_dict())
+        return bf16.to(device).eval()
+
+    def sweep(model, stride, blend, **options):
+        predictor = DeviceSlidingWindowPredictor(model, None, model.out_channels, device, blend=blend, **options)
+        return lambda: predictor.predict_array(volume, PATCH, stride, HALO, normalize=normalize, stats=stats)
+
+    def counted(path, fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = launches_by_dtype()
+        return out
+
+    def expect(path, k2=(0, 0), k1=(0, 0)):
+        want = {"conv3d_fwd": dict(zip(("f32", "bf16"), k2)), "conv3d_packw": {"f32": 0, "bf16": 0},
+                "conv3d_im2col": dict(zip(("f32", "bf16"), k1))}
+        check(launches[path] == want, f"{path} launched {launches[path]}, expected {want}")
+
+    def probs_ok(tag, out):
+        ok = out.shape == (1, *VOLUME) and np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
+        check(ok, f"{tag}: output {out.shape} in [{out.min()}, {out.max()}]")
+
+    def timed(fn):
+        """(median ms of SWEEP_RUNS CUDA-event timings after a warm-up, peak GiB of one call)."""
+        ms = timed_ms(fn, runs=SWEEP_RUNS)
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        return ms, torch.cuda.max_memory_allocated() / 2**30
+
+    def grid(stride):
+        return len(SliceBuilder._build_slices(np.broadcast_to(np.float32(0), VOLUME), PATCH, stride))
+
+    # 15. UNet3D in f32
+    model = seeded(MODEL)
+    n_conv = len(path_conv_shapes(model, patch_in))
+    n_a, n_b = grid(TPU_STRIDE), grid(STRIDE)
+    check((n_conv, n_a, n_b) == (14, 9, 4), f"{n_conv} convs, {n_a} and {n_b} patches")
+    sweep_a = sweep(model, TPU_STRIDE, TPU_BLEND)
+    out_a = counted("device_sweep", sweep_a)
+    expect("device_sweep", k2=(n_conv * n_a, 0))
+    probs_ok("15(a)", out_a)
+    with plain_conv():
+        out_a_plain = sweep_a()
+    err_a = np.abs(out_a - out_a_plain).max()
+    log(f"[15 sweep] (a) {TPU_BLEND}, stride {TPU_STRIDE}: {n_a} patches of {patch_in}, launches "
+        f"{launches['device_sweep']}; kernels vs plain conv max|d| = {err_a:.3e} (tol {FORWARD_TOL}); probs in "
+        f"[{out_a.min():.4f}, {out_a.max():.4f}], mean {out_a.mean():.4f}")
+    check(err_a <= FORWARD_TOL, f"device sweep (a) differs from its plain-conv sweep by {err_a}")
+    del out_a_plain
+
+    sweep_b = sweep(model, STRIDE, "assign")
+    out_b = counted("device_sweep_assign", sweep_b)
+    expect("device_sweep_assign", k2=(n_conv * n_b, 0))
+    err_b = np.abs(out_b - host["out"]).max()
+    log(f"[15 sweep] (b) assign, stride {STRIDE}: {n_b} patches, launches {launches['device_sweep_assign']}; "
+        f"vs phase 4's host predict_array max|d| = {err_b:.3e} (tol {SWEEP_VS_HOST_TOL})")
+    probs_ok("15(b)", out_b)
+    check(err_b <= SWEEP_VS_HOST_TOL, f"device sweep (b) differs from the host loop by {err_b}")
+
+    # 160 padded planes: the 192 of the volume do not fit, the 3 z-levels stream in slabs
+    budget = 160 * padded_plane
+    sweep_c = sweep(model, TPU_STRIDE, TPU_BLEND, max_device_voxels=budget)
+    out_c = counted("device_sweep_streamed", sweep_c)
+    expect("device_sweep_streamed", k2=(n_conv * n_a, 0))
+    err_c = np.abs(out_c - out_a).max()
+    log(f"[15 sweep] (c) (a) streamed, max_device_voxels {budget} ({budget // padded_plane} padded planes of "
+        f"{VOLUME[0] + 2 * HALO[0]}): vs (a) max|d| = {err_c:.3e} (tol {STREAMED_TOL})")
+    check(err_c <= STREAMED_TOL, f"streamed sweep differs from the one-shot sweep by {err_c}")
+    del out_b, out_c
+
+    slab_patch, slab_starts = _plan_slab_grid(VOLUME, PATCH, HALO, 1, 2**24)
+    slab_in = tuple(p + 2 * h for p, h in zip(slab_patch, HALO))
+    check((slab_patch, len(slab_starts)) == ((145, 170, 340), 2), f"slab plan {slab_patch} x {len(slab_starts)}")
+    sweep_d = sweep(model, TPU_STRIDE, TPU_BLEND, patch_mode="slab")
+    out_d = counted("device_sweep_slab", sweep_d)
+    expect("device_sweep_slab", k2=(n_conv * len(slab_starts), 0))
+    probs_ok("15(d)", out_d)
+    del out_d
+
+    # (e) a slab past the default budget: the level-0 decoder concat (96
+    # channels) passes 2^31 elements. Its GroupNorm against float64 statistics,
+    # and the forward against the same forward with the plain conv computed in
+    # depth chunks (no cuDNN call over 2^31 elements)
+    big = (1, 1, *LARGE_SLAB)
+    norm = model.decoders[-1].basic_module.SingleConv1.groupnorm  # GroupNorm(8, 96) of the concat
+    per_group = norm.num_channels // norm.num_groups
+    concat = norm.num_channels * int(np.prod(LARGE_SLAB))
+    check(concat > 2**31 and norm.num_channels == 96, f"the large slab's decoder concat holds {concat} elements")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.inference_mode():
+        x96 = torch.randn((1, norm.num_channels, *LARGE_SLAB), generator=gen, device=device)
+        normed = norm(x96)
+        group = x96[0, -per_group:].double()  # the last group: the highest offsets
+        affine = [t[-per_group:].double()[:, None, None, None] for t in (norm.weight, norm.bias)]
+        want = (group - group.mean()) / torch.sqrt(group.var(unbiased=False) + 1e-5) * affine[0] + affine[1]
+        gn_err = (normed[0, -per_group:].double() - want).abs().max().item() / want.abs().max().item()
+        del x96, normed, group, want
+        x_big = torch.randn(big, generator=gen, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        probs_big = model(x_big)[0]
+        peak_big = torch.cuda.max_memory_allocated() / 2**30
+        plain = conv3d.conv3d_fwd_reference
+
+        def chunked(x, w, b=None):
+            parts = []
+            for z0 in range(0, x.shape[1], 32):
+                lo, hi = max(z0 - 1, 0), min(z0 + 33, x.shape[1])
+                parts.append(plain(x[:, lo:hi], w, b)[:, z0 - lo : z0 - lo + min(32, x.shape[1] - z0)])
+            return torch.cat(parts, dim=1)
+
+        conv3d.conv3d_fwd_reference = chunked
+        try:
+            with plain_conv():
+                probs_big_plain = model(x_big)[0]
+        finally:
+            conv3d.conv3d_fwd_reference = plain
+        err_e = (probs_big - probs_big_plain).abs().max().item()
+        finite_e = bool(torch.isfinite(probs_big).all()) and 0 <= probs_big.min().item() <= probs_big.max().item() <= 1
+        del x_big, probs_big, probs_big_plain
+    torch.cuda.empty_cache()
+    log(f"[15 sweep] (e) one forward of a {LARGE_SLAB} slab (decoder concat {concat} = "
+        f"{concat / 2**31:.2f} x 2^31 elements): its 96-channel GroupNorm vs float64 max|d| / max|GN| = "
+        f"{gn_err:.3e} (tol {LARGE_GN_TOL}); kernels vs the plain conv in depth chunks max|d| = {err_e:.3e} (tol "
+        f"{FORWARD_TOL}); finite in [0, 1]: {finite_e}; peak {peak_big:.2f} GiB")
+    check(gn_err <= LARGE_GN_TOL and err_e <= FORWARD_TOL and finite_e,
+          f"the slab past 2^31 elements: GroupNorm {gn_err}, forward {err_e}, finite in [0, 1] {finite_e}")
+
+    times = {}
+    for tag, fn in (("(a)", sweep_a), ("(b)", sweep_b), ("(c)", sweep_c), ("(d)", sweep_d)):
+        times[tag] = timed(fn)
+    busy = profile_step(sweep_a, times["(a)"][0], top=8, tag="15 profile", what="one device sweep (a)")
+    # the streamed sweep uploads each slab from its loader thread
+    profile_step(sweep_c, times["(c)"][0], top=8, tag="15 profile", what="one streamed device sweep (c)")
+    profile_step(sweep_d, times["(d)"][0], top=8, tag="15 profile", what="one slab sweep (d)")
+    host_ms = 1e3 * host["wall_s"]
+    log(f"[15 sweep] times, median of {SWEEP_RUNS} (CUDA events around the call, upload to download): "
+        + " | ".join(f"{tag} {ms:.2f} ms, {mvoxels / ms * 1e3:.3f} Mvoxel/s, peak {gib:.2f} GiB"
+                     for tag, (ms, gib) in times.items())
+        + f" | phase 5 host predict_array (the grid of (b)) {host_ms:.2f} ms, {mvoxels / host_ms * 1e3:.3f} "
+          f"Mvoxel/s | (d) {len(slab_starts)} slabs of {slab_in} = {np.prod(slab_in) / 1e6:.2f} M padded voxels | "
+          f"device busy over (a): {'not measured' if busy is None else f'{100 * busy:.1f}%'}")
+
+    # 16. UNet3D in bf16
+    model16 = in_bf16(model, MODEL)
+    sweep_16 = sweep(model16, TPU_STRIDE, TPU_BLEND)
+    out_16 = counted("device_sweep_bf16", sweep_16)
+    expect("device_sweep_bf16", k2=(0, n_conv * n_a))
+    probs_ok("16", out_16)
+    with plain_conv():
+        out_16_plain = sweep_16()
+    err_plain, err_f32 = np.abs(out_16 - out_16_plain).max(), np.abs(out_16 - out_a).max()
+    ms_16, gib_16 = timed(sweep_16)
+    log(f"[16 sweep bf16] (a) in bf16: launches {launches['device_sweep_bf16']}; vs the same bf16 sweep with the "
+        f"plain conv max|d| = {err_plain:.3e} (ceiling {BF16_VS_PLAIN_TOL}); vs the f32 sweep (a) max|d| = "
+        f"{err_f32:.3e} (ceiling {BF16_VS_F32_TOL}); {ms_16:.2f} ms, {mvoxels / ms_16 * 1e3:.3f} Mvoxel/s (f32 "
+        f"{times['(a)'][0]:.2f} ms), peak {gib_16:.2f} GiB (f32 {times['(a)'][1]:.2f})")
+    check(err_plain <= BF16_VS_PLAIN_TOL, f"bf16 sweep differs from its plain-conv sweep by {err_plain}")
+    check(err_f32 <= BF16_VS_F32_TOL, f"bf16 sweep differs from the f32 sweep by {err_f32}")
+    profile_step(sweep_16, ms_16, top=8, tag="16 profile", what="one bf16 device sweep (a)")
+    del model, model16, out_a, out_16, out_16_plain
+    torch.cuda.empty_cache()
+
+    # 17. ResidualUNet3D in bf16 under P3DUNET_TAPFOLD=1
+    os.environ["P3DUNET_TAPFOLD"] = "1"
+    try:
+        res32 = seeded(RES_MODEL)
+        k1 = sum(f >= 64 for _, _, f in path_conv_shapes(res32, patch_in))
+        k2 = len(path_conv_shapes(res32, patch_in)) - k1
+        check((k1, k2) == (14, 4), f"ResidualUNet3D: {k1} K1 and {k2} K2 convs")
+        out32 = counted("resunet_device_sweep", sweep(res32, STRIDE, "assign"))
+        expect("resunet_device_sweep", k2=(k2 * n_b, 0), k1=(k1 * n_b, 0))
+        err_host = np.abs(out32 - res_host_out).max()
+        check(err_host <= SWEEP_VS_HOST_TOL, f"ResidualUNet3D sweep differs from phase 11's host loop by {err_host}")
+        res16 = in_bf16(res32, RES_MODEL)
+        sweep_17 = sweep(res16, STRIDE, "assign")
+        out_17 = counted("resunet_device_sweep_bf16", sweep_17)
+        expect("resunet_device_sweep_bf16", k2=(0, k2 * n_b), k1=(0, k1 * n_b))
+        probs_ok("17", out_17)
+        with plain_conv():
+            out_17_plain = sweep_17()
+        err_plain, err_f32 = np.abs(out_17 - out_17_plain).max(), np.abs(out_17 - out32).max()
+        ms_17, gib_17 = timed(sweep_17)
+        ms_17_f32, gib_17_f32 = timed(sweep(res32, STRIDE, "assign"))
+        log(f"[17 resunet sweep bf16] assign, stride {STRIDE}: f32 sweep vs phase 11's host loop max|d| = "
+            f"{err_host:.3e} (tol {SWEEP_VS_HOST_TOL}); bf16 launches {launches['resunet_device_sweep_bf16']}; vs "
+            f"the same bf16 sweep with the plain conv max|d| = {err_plain:.3e} (ceiling {BF16_VS_PLAIN_TOL}); vs the "
+            f"f32 sweep max|d| = {err_f32:.3e} (ceiling {BF16_VS_F32_TOL}); bf16 {ms_17:.2f} ms, "
+            f"{mvoxels / ms_17 * 1e3:.3f} Mvoxel/s, peak {gib_17:.2f} GiB | f32 {ms_17_f32:.2f} ms, "
+            f"{mvoxels / ms_17_f32 * 1e3:.3f} Mvoxel/s, peak {gib_17_f32:.2f} GiB")
+        check(err_plain <= BF16_VS_PLAIN_TOL, f"ResidualUNet3D bf16 sweep differs from its plain-conv sweep by "
+                                              f"{err_plain}")
+        check(err_f32 <= BF16_VS_F32_TOL, f"ResidualUNet3D bf16 sweep differs from its f32 sweep by {err_f32}")
+        del res32, res16
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("P3DUNET_TAPFOLD", None)
+    return {"launches": launches}
 
 
 def synthetic_batch(rs):
@@ -774,6 +1045,7 @@ def main():
     wall = statistics.median(walls)
     log(f"[5 predict] predict_array {VOLUME}: median {wall:.3f} s of {RUNS} -> "
         f"{np.prod(VOLUME) / wall / 1e6:.3f} Mvoxel/s (runs: {', '.join(f'{t:.3f}' for t in walls)})")
+    host = {"out": out, "wall_s": wall}
     del model, predictor, probs, probs_plain, x0
     torch.cuda.empty_cache()
 
@@ -955,8 +1227,13 @@ def main():
     # 10-14. ResidualUNet3D with K1 under P3DUNET_TAPFOLD=1
     res = residual_unet_phases(device, gen, volume, (train_batch, val_batch))
 
+    # 15-17. the device sweep, f32 and bf16
+    sweep = device_sweep_phases(device, volume, host, res["predict_out"])
+
     unet_paths = {"predict": predict_launches, "train": train_launches}
-    paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"]}
+    paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
+             **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}
+                for path, by_dtype in sweep["launches"].items()}}
     k2_bound = summed_bound([(shape, f, True) for _, shape, f in shapes], tc_bound)
     k2_bound_ffma = summed_bound([(shape, f, True) for _, shape, f in shapes])
     k3_bound = summed_bound([(shape, c, False) for _, shape, c in train_dgrads], tc_bound)
@@ -965,6 +1242,7 @@ def main():
         {"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
          "launches_by_path": {path: counts["conv3d_fwd"] for path, counts in paths.items()},
+         "launches_by_path_dtype": {path: counts["conv3d_fwd"] for path, counts in sweep["launches"].items()},
          "max_abs_err": max(errors[torch.float32], res["errors_k2"][torch.float32]),
          "max_abs_err_bf16": max(errors[torch.bfloat16], res["errors_k2"][torch.bfloat16]), "ms": conv_ms,
          "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
@@ -976,6 +1254,7 @@ def main():
         {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
          "launches_by_path": {path: counts["conv3d_packw"] for path, counts in paths.items()},
+         "launches_by_path_dtype": {path: counts["conv3d_packw"] for path, counts in sweep["launches"].items()},
          "max_abs_err": max(errors_k3[torch.float32], res["errors_k3"][torch.float32]),
          "max_abs_err_bf16": max(errors_k3[torch.bfloat16], res["errors_k3"][torch.bfloat16]),
          "ms": k3_sums["kernel_ms"], "plain_ms": k3_sums["reference_ms"], "bound_ms": k3_bound[0],
@@ -987,6 +1266,7 @@ def main():
         {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
          "launches_by_path": {path: counts["conv3d_im2col"] for path, counts in paths.items()},
+         "launches_by_path_dtype": {path: counts["conv3d_im2col"] for path, counts in sweep["launches"].items()},
          "max_abs_err": res["errors"][torch.float32], "max_abs_err_bf16": res["errors"][torch.bfloat16],
          "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"], "plain_tf32_ms": res["k1_plain_tf32_ms"],
          "bound_ms": res["k1_bound"][0], "bound_by": res["k1_bound"][1], "bound_ffma_ms": res["k1_bound_ffma"][0],

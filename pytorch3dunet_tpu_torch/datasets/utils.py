@@ -18,12 +18,12 @@ import numpy as np
 from scipy.ndimage import zoom
 
 from pytorch3dunet_tpu_torch.datasets.loader import ConcatDataset, DataLoader
-from pytorch3dunet_tpu_torch.utils.misc import get_class, get_logger
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, ITEM_AUGMENT, get_class, get_logger, not_ported
 
 logger = get_logger("Dataset")
 
 # dataset classes of the JAX package that the port does not have yet, with their ROADMAP item
-_NOT_PORTED = {"DSB2018Dataset": "Queue 1 item 10"}
+_NOT_PORTED = {"DSB2018Dataset": ITEM_2D}
 
 
 class ConfigDataset:
@@ -249,8 +249,7 @@ def _dataset_class(loaders_config: dict):
         dataset_cls_str = "StandardHDF5Dataset"
         logger.warning(f"Cannot find dataset class in the config. Using default '{dataset_cls_str}'.")
     if dataset_cls_str in _NOT_PORTED:
-        raise NotImplementedError(f"{dataset_cls_str} is not ported to PyTorch yet "
-                                  f"(ROADMAP {_NOT_PORTED[dataset_cls_str]})")
+        raise not_ported(dataset_cls_str, _NOT_PORTED[dataset_cls_str])
     return get_class(dataset_cls_str, modules=["pytorch3dunet_tpu_torch.datasets.hdf5",
                                                 "pytorch3dunet_tpu_torch.datasets.utils"])
 
@@ -262,7 +261,7 @@ def get_train_loaders(config: dict, seed: int | None = None) -> dict:
     assert "loaders" in config, "Could not find data loaders configuration"
     loaders_config = config["loaders"]
     if loaders_config.get("device_augment", False):
-        raise NotImplementedError("loaders.device_augment is not ported to PyTorch yet (ROADMAP Queue 1 item 11)")
+        raise not_ported("loaders.device_augment", ITEM_AUGMENT)
     assert set(loaders_config["train"]["file_paths"]).isdisjoint(loaders_config["val"]["file_paths"]), (
         "Train and validation 'file_paths' overlap. One cannot use validation data for training!"
     )

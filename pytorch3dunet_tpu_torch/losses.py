@@ -10,12 +10,12 @@ JAX registry raise until they are ported.
 import torch
 import torch.nn.functional as F
 
-from pytorch3dunet_tpu_torch.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_LOSSES, get_logger, not_ported
 
 logger = get_logger("Loss")
 
 # losses of the JAX registry that the port does not have yet, with their ROADMAP item
-_NOT_PORTED = {name: "Queue 1 item 8" for name in (
+_NOT_PORTED = {name: ITEM_LOSSES for name in (
     "CrossEntropyLoss", "WeightedCrossEntropyLoss", "GeneralizedDiceLoss", "MSELoss", "SmoothL1Loss", "L1Loss",
     "WeightedSmoothL1Loss")}
 
@@ -142,7 +142,7 @@ def get_loss_criterion(config):
     pos_weight = loss_config.pop("pos_weight", None)
 
     if name in _NOT_PORTED:
-        raise NotImplementedError(f"loss {name} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[name]})")
+        raise not_ported(f"loss {name}", _NOT_PORTED[name])
     if name == "BCEWithLogitsLoss":
         loss = BCEWithLogitsLoss(pos_weight=pos_weight)
     elif name == "BCEDiceLoss":

@@ -5,7 +5,8 @@ with parity to the reference (pytorch3dunet/unet3d/metrics.py). Metrics run on
 the host at validation cadence — exactly as the reference, which leaves the
 device at metrics.py:131,299 — so they are numpy implementations on
 channels-first (N, C, D, H, W) arrays, the port's layout. The device twins of
-the JAX package (`device_metric_fn`) are not ported yet (ROADMAP Queue 1 item 8).
+the JAX package (`device_metric_fn`) are not ported yet (ROADMAP Queue 1, "The rest of
+the losses and metrics").
 """
 
 import numpy as np

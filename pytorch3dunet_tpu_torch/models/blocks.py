@@ -13,6 +13,10 @@ dropout. The blocks train and predict: in `train()` BatchNorm uses batch
 statistics and dropout draws masks, in `eval()` running statistics and the
 identity. Every backward but the conv's (ops/conv3d.py `Conv3dFunction`) is
 torch's own.
+
+Each layer computes in its input's dtype with its float32 parameters cast to
+it, except the norms, which compute in float32 on a float32 copy of a bfloat16
+input and cast back (JAX blocks.py:126-128, 226-236).
 """
 
 import torch
@@ -20,7 +24,26 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.models.se import ChannelSpatialSELayer3D
-from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d
+from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, cast_to
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, not_ported
+
+
+class _Float32Norm:
+    """Mixin of the norm layers: a bfloat16 input is normalized in float32
+    (statistics and affine) and the result cast back to bfloat16."""
+
+    def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return super().forward(x.float()).to(x.dtype)
+        return super().forward(x)
+
+
+class GroupNorm(_Float32Norm, nn.GroupNorm):
+    pass
+
+
+class BatchNorm3d(_Float32Norm, nn.BatchNorm3d):
+    pass
 
 
 class SingleConv(nn.Sequential):
@@ -52,9 +75,9 @@ class SingleConv(nn.Sequential):
                     f"Expected number of channels in input to be divisible by num_groups. "
                     f"num_channels={channels}, num_groups={groups}"
                 )
-                self.add_module("groupnorm", nn.GroupNorm(groups, channels, eps=1e-5))
+                self.add_module("groupnorm", GroupNorm(groups, channels, eps=1e-5))
             elif char == "b":
-                self.add_module("batchnorm", nn.BatchNorm3d(channels, eps=1e-5))
+                self.add_module("batchnorm", BatchNorm3d(channels, eps=1e-5))
             elif char == "d":
                 self.add_module("dropout", nn.Dropout(p=dropout_prob))
             elif char == "D":
@@ -165,7 +188,9 @@ class TransposeConvUpsampling(nn.Module):
                                                       bias=False)
 
         def forward(self, x, size):
-            return F.interpolate(self.conv_transposed(x), size=size, mode="nearest")
+            conv = self.conv_transposed
+            y = F.conv_transpose3d(x, cast_to(conv.weight, x), None, stride=conv.stride, padding=conv.padding)
+            return F.interpolate(y, size=size, mode="nearest")
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -191,8 +216,7 @@ class Decoder(nn.Module):
                  concat: bool = True):
         super().__init__()
         if upsample_mode not in ("nearest", "deconv"):
-            raise NotImplementedError(f"upsample mode {upsample_mode!r} is not ported to PyTorch yet "
-                                      f"(ROADMAP Queue 1 item 7)")
+            raise not_ported(f"upsample mode {upsample_mode!r}", ITEM_2D)
         self.upsampling = TransposeConvUpsampling(in_channels, out_channels) if upsample_mode == "deconv" else None
         upsampled = out_channels if upsample_mode == "deconv" else in_channels
         self.concat = concat

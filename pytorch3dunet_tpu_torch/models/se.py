@@ -5,11 +5,15 @@ Counterparts of pytorch3dunet_tpu/models/se.py and of the reference
 SE and concurrent scSE (Roy et al., arXiv:1803.02579). Module names are the
 reference's (`cSE.fc1`, `sSE.conv`), the keys the JAX package's torch interop
 reads and writes. The JAX layers' optimization barrier (`_guard`) works around
-a TPU compiler fault and has no counterpart here.
+a TPU compiler fault and has no counterpart here. The layers compute in their
+input's dtype, with the float32 parameters cast to it.
 """
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from pytorch3dunet_tpu_torch.ops.conv3d import cast_to
 
 
 class ChannelSELayer3D(nn.Module):
@@ -24,7 +28,8 @@ class ChannelSELayer3D(nn.Module):
 
     def forward(self, x):
         squeezed = x.mean(dim=(2, 3, 4))
-        gate = torch.sigmoid(self.fc2(torch.relu(self.fc1(squeezed))))
+        hidden = torch.relu(F.linear(squeezed, cast_to(self.fc1.weight, x), cast_to(self.fc1.bias, x)))
+        gate = torch.sigmoid(F.linear(hidden, cast_to(self.fc2.weight, x), cast_to(self.fc2.bias, x)))
         return x * gate[:, :, None, None, None]
 
 
@@ -37,7 +42,7 @@ class SpatialSELayer3D(nn.Module):
         self.conv = nn.Conv3d(num_channels, 1, 1)
 
     def forward(self, x):
-        return x * torch.sigmoid(self.conv(x))
+        return x * torch.sigmoid(F.conv3d(x, cast_to(self.conv.weight, x), cast_to(self.conv.bias, x)))
 
 
 class ChannelSpatialSELayer3D(nn.Module):

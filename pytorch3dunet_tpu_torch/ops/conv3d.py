@@ -47,9 +47,24 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Pallas variant -> the csrc/ source of its CUDA kernel
 KERNELS = {"roll": "conv3d_fwd", "packw": "conv3d_packw", "im2col": "conv3d_im2col"}
 
-# launches of each CUDA kernel (by source name) since the last reset; callers
-# set them to 0
+# launches of each CUDA kernel (by source name) since the last reset, and the
+# same split by dtype ("f32", "bf16"); callers set them to 0 (`reset_launches`)
 launches = dict.fromkeys(KERNELS.values(), 0)
+launches_by_dtype = {name: dict.fromkeys(_SUFFIX.values(), 0) for name in KERNELS.values()}
+
+
+def reset_launches():
+    """Sets every launch count to 0."""
+    for name in launches:
+        launches[name] = 0
+        launches_by_dtype[name] = dict.fromkeys(_SUFFIX.values(), 0)
+
+
+def cast_to(t, x):
+    """Parameter `t` (or None) in x's dtype: the layers keep float32
+    parameters and compute in their input's dtype (bfloat16 under
+    `model.dtype: bfloat16`)."""
+    return None if t is None else t.to(x.dtype)
 
 # set only inside `plain_conv()`
 _force_plain = False
@@ -150,6 +165,7 @@ def conv3d_fwd(x, w, b=None, variant: str | None = None):
         raise RuntimeError(f"{name} kernel launch failed for x {tuple(x.shape)} {x.dtype}, F={Fo}: "
                            f"{message.decode()} (cudaError {err})")
     launches[name] += 1
+    launches_by_dtype[name][_SUFFIX[x.dtype]] += 1
     return y
 
 
@@ -226,7 +242,8 @@ class Conv3d(nn.Conv3d):
     The kernels read the NDHWC view of x: a copy when x is not channels-last
     in memory (`input_copies` counts those copies). With grad enabled and a
     tensor that needs one, the conv goes through `Conv3dFunction`; otherwise
-    straight to `conv3d_fwd`. Kernel 1 / padding 0 runs `F.conv3d`."""
+    straight to `conv3d_fwd`. Kernel 1 / padding 0 runs `F.conv3d`. Either
+    computes in x's dtype, with the weights and bias cast to it."""
 
     # layout copies made for the kernel's NDHWC input since the last reset
     input_copies = 0
@@ -240,7 +257,7 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x):
         if self.kernel_size == (1, 1, 1):
-            return F.conv3d(x, self.weight, self.bias)
+            return F.conv3d(x, cast_to(self.weight, x), cast_to(self.bias, x))
         x_cl = x.permute(0, 2, 3, 4, 1)
         if not x_cl.is_contiguous():
             x_cl = x_cl.contiguous()

@@ -1,41 +1,53 @@
 """Prediction CLI of the port: `python -m pytorch3dunet_tpu_torch.predict --config test_config.yml`.
 
-Same YAML schema and overrides as `predict3dunet`; the weights come from a
-torch-format checkpoint (`model_path`).
+Same YAML schema and overrides as `predict3dunet`. The weights come from
+`model_path`: a torch-format checkpoint, or a JAX npz checkpoint, whose EMA
+weights are preferred when it carries them (as `predict3dunet` does).
+
+On CUDA the default `StandardPredictor` becomes `DeviceSlidingWindowPredictor`
+(the sweep on the device), as the JAX CLI does on its accelerator;
+`predictor.force_host: true` keeps the host loop. On `device: cpu` the host
+loop stays the default.
 """
 
 import os
+import sys
 
-from pytorch3dunet_tpu_torch.utils.misc import get_logger
+import torch
+
 from pytorch3dunet_tpu_torch.config import load_config, resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_test_loaders
 from pytorch3dunet_tpu_torch.models.unet import get_model
-from pytorch3dunet_tpu_torch.predictor import StandardPredictor
+from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor, StandardPredictor
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, ITEM_PREDICTORS, get_logger, not_ported
 from pytorch3dunet_tpu_torch.utils.weights import load_weights
 
 logger = get_logger("UNet3DPredict")
 
+_PREDICTORS = {cls.__name__: cls for cls in (StandardPredictor, DeviceSlidingWindowPredictor)}
 # predictors of the JAX package that the port does not have yet, with their ROADMAP item
-_NOT_PORTED = {
-    "LazyPredictor": "Queue 1 item 10",
-    "DSB2018Predictor": "Queue 1 item 10",
-    "DeviceSlidingWindowPredictor": "Queue 1 item 5",
-}
+_NOT_PORTED = {"LazyPredictor": ITEM_PREDICTORS, "DSB2018Predictor": ITEM_2D}
 
 
 def get_predictor(model, config: dict):
-    """Resolves the predictor class by `config['predictor']['name']`."""
+    """Resolves the predictor class by `config['predictor']['name']`; on a
+    CUDA device the default host loop becomes the device sweep unless
+    `force_host` (JAX predict.py `get_predictor`)."""
     output_dir = config["loaders"].get("output_dir", None)
     if output_dir is not None:
         os.makedirs(output_dir, exist_ok=True)
     predictor_config = dict(config.get("predictor", {}))
     class_name = predictor_config.pop("name", "StandardPredictor")
+    force_host = predictor_config.pop("force_host", False)
+    if class_name == "StandardPredictor" and torch.device(config["device"]).type == "cuda" and not force_host:
+        logger.info("CUDA device: using DeviceSlidingWindowPredictor (set predictor.force_host to opt out)")
+        class_name = "DeviceSlidingWindowPredictor"
     if class_name in _NOT_PORTED:
-        raise NotImplementedError(f"{class_name} is not ported to PyTorch yet (ROADMAP {_NOT_PORTED[class_name]})")
-    if class_name != "StandardPredictor":
+        raise not_ported(class_name, _NOT_PORTED[class_name])
+    if class_name not in _PREDICTORS:
         raise ValueError(f"Unknown predictor {class_name!r}")
     out_channels = config["model"].get("out_channels")
-    return StandardPredictor(model, output_dir, out_channels, device=config["device"], **predictor_config)
+    return _PREDICTORS[class_name](model, output_dir, out_channels, device=config["device"], **predictor_config)
 
 
 def run(config: dict):
@@ -47,8 +59,20 @@ def run(config: dict):
     load_weights(model, config["model_path"])
     model = model.to(device).eval()
     predictor = get_predictor(model, config)
-    for test_loader in get_test_loaders(config):
-        predictor(test_loader)
+    try:
+        for test_loader in get_test_loaders(config):
+            predictor(test_loader)
+    finally:
+        # join the write-behind output write of the last volume. When the loop
+        # is already unwinding with its own exception, a write failure here
+        # must not replace it: log it and let the first one propagate
+        if sys.exc_info()[0] is None:
+            predictor.finalize()
+        else:
+            try:
+                predictor.finalize()
+            except Exception:  # noqa: BLE001
+                logger.exception("write-behind save ALSO failed while handling the error above")
 
 
 def main(argv=None):

@@ -1,13 +1,24 @@
 """Sliding-window prediction: patch forward, halo crop, stitch.
 
-The counterpart of pytorch3dunet_tpu/predictor.py `StandardPredictor` (host
-patch loop). Patches arrive halo-padded; the predicted halo is cropped and the
-core is assigned at the patch's index, so at stride == patch stitching is pure
-assignment. `__call__` runs an HDF5 test loader and writes a gzip H5 file;
-`predict_array` runs the same loop on an in-memory volume.
+The counterparts of pytorch3dunet_tpu/predictor.py `StandardPredictor` (host
+patch loop) and `DeviceSlidingWindowPredictor` (the sweep on the device).
+
+`StandardPredictor`: patches arrive halo-padded from the test loader; the
+predicted halo is cropped and the core is assigned at the patch's index, so at
+stride == patch stitching is pure assignment. `__call__` runs an HDF5 test
+loader and writes a gzip H5 file; `predict_array` runs the same loop on an
+in-memory volume.
+
+`DeviceSlidingWindowPredictor`: the volume goes to the device once and the
+patch loop, the normalization and the stitching run there
+(inference_device.py); volumes over a budget stream through in z-slabs, and the
+H5 write of one volume overlaps the next volume's sweep. It is the predict
+CLI's default on CUDA.
 """
 
+import collections
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -15,7 +26,8 @@ import torch
 
 from pytorch3dunet_tpu_torch.augment.transforms import Transformer
 from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder, calculate_stats, mirror_pad, remove_padding
-from pytorch3dunet_tpu_torch.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.ops.tta import flip_combos, patch_axes_to_array_axes, resolve_tta_axes, tta_average
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_PREDICTORS, get_logger, not_ported
 
 logger = get_logger("UNetPredictor")
 
@@ -37,14 +49,16 @@ class StandardPredictor:
         output_dataset: name of the H5 dataset for the predictions.
         save_segmentation: save a binarized / argmax segmentation instead of probabilities.
         prediction_channel: save only this channel of the output.
+        tta: mirror-flip test-time augmentation: average the probabilities over
+            every flip combination of the spatial axes (8 forwards).
+        tta_axes: restrict mirroring to these axes (0=z, 1=y, 2=x).
     """
 
     def __init__(self, model, output_dir, out_channels, device, output_dataset="predictions",
-                 save_segmentation=False, prediction_channel=None, **kwargs):
+                 save_segmentation=False, prediction_channel=None, tta=False, tta_axes=None, **kwargs):
         assert out_channels > 0, f"Invalid number of output channels: {out_channels}"
-        for key in ("performance_metric", "tta"):
-            if kwargs.get(key):
-                raise NotImplementedError(f"predictor.{key} is not ported to PyTorch yet (ROADMAP Queue 1 item 10)")
+        if kwargs.get("performance_metric"):
+            raise not_ported("predictor.performance_metric", ITEM_PREDICTORS)
         self.model = model
         self.output_dir = output_dir
         self.out_channels = out_channels
@@ -52,13 +66,37 @@ class StandardPredictor:
         self.output_dataset = output_dataset
         self.save_segmentation = save_segmentation
         self.prediction_channel = prediction_channel
+        self.tta = tta
+        self.tta_axes = tta_axes
+        if tta:
+            logger.info(f"Test-time mirror augmentation on (axes: {self._tta_patch_axes()})")
+
+    def _tta_patch_axes(self) -> tuple[int, ...]:
+        """Patch-space (z, y, x) axes the TTA ensemble mirrors; () when off."""
+        return resolve_tta_axes(self.tta, self.tta_axes, is_2d=False)
+
+    def _tta_wrap(self, run):
+        """Wraps a batch forward `run` with the mirror ensemble: patch axis k
+        is axis k + 2 of the (N, C, D, H, W) batch."""
+        axes = self._tta_patch_axes()
+        if not axes:
+            return run
+        combos = flip_combos(patch_axes_to_array_axes(axes))
+        return lambda x: tta_average(run, x, combos)
 
     def _forward(self, batch_ncdhw: np.ndarray) -> np.ndarray:
         """Probabilities of an (N, C, D, H, W) numpy batch, as float32 numpy."""
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(batch_ncdhw, dtype=np.float32)).to(self.device)
-            probs, _ = self.model(x)
+            probs = self._tta_wrap(lambda xi: self.model(xi)[0])(x)
             return probs.float().cpu().numpy()
+
+    @staticmethod
+    def _to_segmentation(probs: np.ndarray, channel_axis: int = 0) -> np.ndarray:
+        """Binarize (> 0.5, one channel) or argmax over `channel_axis`, uint16."""
+        if probs.shape[channel_axis] == 1:
+            return (np.take(probs, 0, axis=channel_axis) > 0.5).astype("uint16")
+        return np.argmax(probs, axis=channel_axis).astype("uint16")
 
     def _stitch(self, batches, prediction_array, halo_shape, probabilities=False):
         """Runs (batch, indices) pairs through the model and writes each
@@ -72,8 +110,7 @@ class StandardPredictor:
                 if probabilities:
                     index = (slice(None),) + tuple(index)
                 elif self.save_segmentation:
-                    pred = (pred[0] > 0.5) if pred.shape[0] == 1 else np.argmax(pred, axis=0)
-                    pred = pred.astype("uint16")
+                    pred = self._to_segmentation(pred)
                     index = tuple(index)
                 elif self.prediction_channel is None:
                     index = (slice(0, self.out_channels),) + tuple(index)
@@ -81,6 +118,10 @@ class StandardPredictor:
                     pred = pred[self.prediction_channel][None]
                     index = (slice(0, 1),) + tuple(index)
                 prediction_array[index] = pred
+
+    def finalize(self):
+        """Drains deferred output work. The host loop saves inline, so this is
+        a no-op; the predict CLI calls it after the last volume."""
 
     def _prediction_shape(self, volume_shape) -> tuple:
         if self.save_segmentation:
@@ -129,3 +170,498 @@ class StandardPredictor:
         self._stitch(((patch[None], [index]) for patch, index in patches), out, tuple(halo_shape),
                      probabilities=True)
         return out
+
+
+def _read_padded_slab(raw, halo_shape, z_lo: int, z_hi: int) -> np.ndarray:
+    """Returns `mirror_pad(volume, halo_shape)[z_lo:z_hi]` as a channels-last
+    float32 slab WITHOUT materializing the padded volume.
+
+    `raw` is an h5py dataset or ndarray, (D, H, W) or channels-first
+    (C, D, H, W). The z planes are fetched with one contiguous read (reflected
+    indices gathered host-side), then H/W are reflect-padded per slab — this
+    is how bigger-than-RAM volumes reach the device sweep.
+    """
+    channels_first = raw.ndim == 4
+    depth = int(raw.shape[1] if channels_first else raw.shape[0])
+    hz, hy, hx = halo_shape
+    if hz >= depth and hz > 0:
+        # same condition under which np.pad(mode='reflect') raises in
+        # mirror_pad: a single reflection cannot cover the halo
+        raise ValueError(f"halo depth {hz} must be smaller than the volume depth {depth}")
+    idx = np.arange(z_lo, z_hi) - hz
+    idx = np.abs(idx)  # reflect at the top edge
+    idx = np.where(idx >= depth, 2 * depth - 2 - idx, idx)  # reflect at the bottom
+    lo, hi = int(idx.min()), int(idx.max())
+    block = raw[:, lo : hi + 1] if channels_first else raw[lo : hi + 1]
+    block = np.asarray(block, dtype=np.float32)
+    slab = block[:, idx - lo] if channels_first else block[idx - lo]
+    if channels_first:
+        slab = np.moveaxis(slab, 0, -1)  # (dz, H, W, C)
+    pad = [(0, 0), (hy, hy), (hx, hx)] + ([(0, 0)] if channels_first else [])
+    if hy or hx:
+        slab = np.pad(slab, pad, mode="reflect")
+    return slab
+
+
+def _plan_slab_grid(spatial, patch_shape, halo_shape, cin, budget, min_slab_z=64):
+    """Plans the `patch_mode: slab` geometry: full-xy z-slabs replacing the
+    configured (z, y, x) patch grid.
+
+    Each slab covers the whole padded plane, so interior xy seams (and their
+    halo'd redundant compute) vanish; the configured halo still mirror-pads
+    every patch on all sides, preserving the reference's volume-edge context.
+    Slab depth is the largest core z such that the padded slab fits `budget`
+    voxels, covered SliceBuilder-style (stride == slab, tail slab shifted flush
+    to the end).
+
+    Returns (slab_patch_shape, starts) or None when no slab of at least
+    `min_slab_z` (or the configured patch depth, if larger) fits: small
+    budgets keep the user's grid rather than degrade it to thin slabs.
+    """
+    d, h, w = (int(s) for s in spatial)
+    hz, hy, hx = halo_shape
+    plane = (h + 2 * hy) * (w + 2 * hx) * cin
+    slab_z = min(d, int(budget) // plane - 2 * hz)
+    if slab_z < d and slab_z < max(min_slab_z, patch_shape[0]):
+        return None
+    return (slab_z, h, w), _slab_starts(d, slab_z)
+
+
+def _slab_starts(d, slab_z):
+    """SliceBuilder-style z coverage: stride == slab, tail shifted flush."""
+    zs = list(range(0, d - slab_z + 1, slab_z))
+    if zs[-1] + slab_z < d:
+        zs.append(d - slab_z)
+    return np.asarray([(z, 0, 0) for z in zs], dtype=np.int32)
+
+
+def _axis_starts(extent, size):
+    """Flush-tail tiling of one axis (the 1-D _slab_starts)."""
+    ss = list(range(0, extent - size + 1, size))
+    if ss[-1] + size < extent:
+        ss.append(extent - size)
+    return ss
+
+
+def _plan_strip_grid(spatial, patch_shape, halo_shape, cin, budget, min_strip=64):
+    """Intermediate 'strip' geometry between slab and grid: when the xy plane
+    alone exceeds the budget (no full-plane slab can form), plan full-x (or
+    full-y) strips — one spatial axis spans the whole volume, so interior seams
+    (and their halo'd redundant compute) survive only on the two SHORT axes.
+
+    Both orientations are scored by total padded compute (number of strips x
+    padded strip voxels, flush-tail coverage) and the cheaper one wins. Strips
+    thinner than `min_strip` (or the configured patch size) on either short
+    axis are refused, like thin slabs.
+
+    Returns ((sz, sy, sx), starts) or None.
+    """
+    d, h, w = (int(s) for s in spatial)
+    hz, hy, hx = halo_shape
+    floor_z = max(min_strip, patch_shape[0])
+
+    def plan(full_axis):
+        # full_axis: 2 -> full-x strips (tile z, y); 1 -> full-y (tile z, x)
+        full_len, full_halo = (w, hx) if full_axis == 2 else (h, hy)
+        short_len, short_halo = (h, hy) if full_axis == 2 else (w, hx)
+        floor_s = max(min_strip, patch_shape[full_axis ^ 3])  # 2^3=1, 1^3=2
+        cells = int(budget) // ((full_len + 2 * full_halo) * cin)
+        best = None
+        for sz in range(min(d, floor_z), min(d, max(floor_z, cells)) + 1):
+            ss = cells // (sz + 2 * hz) - 2 * short_halo
+            ss = min(ss, short_len)
+            if ss < min(short_len, floor_s):
+                continue
+            n = len(_axis_starts(d, sz)) * len(_axis_starts(short_len, ss))
+            padded = n * (sz + 2 * hz) * (ss + 2 * short_halo) * (full_len + 2 * full_halo)
+            if best is None or padded < best[0]:
+                best = (padded, sz, ss)
+        if best is None:
+            return None
+        _, sz, ss = best
+        if full_axis == 2:
+            shape = (sz, ss, w)
+            starts = [(z, y, 0) for z in _axis_starts(d, sz) for y in _axis_starts(h, ss)]
+        else:
+            shape = (sz, h, ss)
+            starts = [(z, 0, x) for z in _axis_starts(d, sz) for x in _axis_starts(w, ss)]
+        return best[0], shape, np.asarray(starts, dtype=np.int32)
+
+    plans = [p for p in (plan(2), plan(1)) if p is not None]
+    if not plans:
+        return None
+    _, shape, starts = min(plans, key=lambda p: p[0])
+    return shape, starts
+
+
+class DeviceSlidingWindowPredictor(StandardPredictor):
+    """Sliding-window prediction with the patch sweep running on the device.
+
+    The mirror-padded volume is uploaded once; the patch loop (slice ->
+    normalize -> forward -> halo crop -> stitch) runs on the device and the
+    stitched volume comes back once (inference_device.py). Falls back to the
+    host loop (`StandardPredictor`, on the same device) for transformer
+    pipelines that `detect_device_path` does not map.
+
+    Large volumes: when the padded volume exceeds `max_device_voxels`
+    elements, the grid is processed in z-slabs, uploading one sub-volume at a
+    time (the device-side counterpart of the LazyPredictor).
+
+    Extra config keys:
+        blend: 'assign' (default, reference parity) or 'gaussian'
+            (Gaussian-weighted patch blending for overlapping grids).
+        shard: split the patch grid across the visible devices. The port runs
+            on one device, where it changes nothing (as in the JAX package on
+            one device).
+        max_device_voxels: slab the sweep when the padded volume is larger
+            than this many elements (default 1e9).
+        patch_batch: patches per forward (default 1).
+        patch_mode: 'grid' (default) sweeps the configured patch grid
+            unchanged (reference-exact patch independence). 'slab' coalesces
+            the grid into full-xy z-slabs as deep as `max_patch_voxels`
+            allows, so interior patch seams disappear and the halo's redundant
+            compute is paid only along z; when no full-plane slab fits, strips
+            spanning one full axis; when neither fits, the configured grid
+            with a warning. Outputs differ from 'grid' near former interior
+            seams.
+        write_behind: run the gzip H5 output write on a background thread so
+            the next volume's sweep overlaps it (default true). The previous
+            volume's prediction stays in host memory meanwhile; false saves
+            inline.
+        max_patch_voxels: padded-voxel budget for one slab forward in 'slab'
+            mode (default 2**24).
+    """
+
+    def __init__(self, *args, blend="assign", shard=True, max_device_voxels=int(1e9), patch_batch=None,
+                 patch_mode="grid", max_patch_voxels=2**24, write_behind=True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.blend = blend
+        self.write_behind = bool(write_behind)
+        del shard  # one device: nothing to shard (see the class docstring)
+        self.max_device_voxels = max_device_voxels
+        self.patch_batch = patch_batch
+        if patch_mode not in ("grid", "slab"):
+            raise ValueError(f"unknown patch_mode {patch_mode!r}: expected 'grid' or 'slab'")
+        self.patch_mode = patch_mode
+        self.max_patch_voxels = int(max_patch_voxels)
+        self._sweeps = {}
+        # write-behind output state (_submit_write / finalize)
+        self._writer = None
+        self._write_future = None
+
+    def _get_sweep(self, patch_shape, halo_shape, normalize, stats):
+        from pytorch3dunet_tpu_torch.inference_device import DeviceSlidingWindow
+
+        # the key is structural: per-volume stats are passed per call
+        key = (tuple(patch_shape), tuple(halo_shape), normalize)
+        if key not in self._sweeps:
+            self._sweeps[key] = DeviceSlidingWindow(
+                self.model, patch_shape, halo_shape, normalize=normalize, stats=stats, blend=self.blend,
+                patch_batch=self.patch_batch or 1, tta_axes=self._tta_patch_axes())
+        return self._sweeps[key]
+
+    def _plan_geometry(self, spatial, patch_shape, starts, halo_shape, cin):
+        """Applies `patch_mode` to the configured (patch_shape, starts) grid:
+        'grid' returns them unchanged; 'slab' plans full-plane z-slabs, else
+        strips, else keeps the grid."""
+        if self.patch_mode != "slab":
+            return patch_shape, starts
+        n_grid = len(starts)
+        plan = _plan_slab_grid(spatial, patch_shape, halo_shape, cin, self.max_patch_voxels)
+        if plan is not None:
+            logger.info(f"patch_mode 'slab': {len(plan[1])} full-plane z-slab(s) of depth {plan[0][0]} replace "
+                        f"the {n_grid}-patch grid")
+            return plan
+        # slab refused (plane too large / slabs too thin): try the strip
+        # geometry before surrendering to the grid
+        strip = _plan_strip_grid(spatial, patch_shape, halo_shape, cin, self.max_patch_voxels)
+        if strip is not None:
+            shape = strip[0]
+            logger.info(f"patch_mode 'slab': no full-plane slab fits; {len(strip[1])} {shape[0]}x{shape[1]}x"
+                        f"{shape[2]} strips replace the {n_grid}-patch grid (halo only on the short axes)")
+            return strip
+        logger.warning(f"patch_mode 'slab': neither a full-plane slab nor a strip fits max_patch_voxels="
+                       f"{self.max_patch_voxels} for the {spatial[1]}x{spatial[2]} plane; keeping the configured "
+                       "patch grid")
+        return patch_shape, starts
+
+    def __call__(self, test_loader):
+        import h5py
+
+        from pytorch3dunet_tpu_torch.inference_device import detect_device_path
+
+        dataset = test_loader.dataset
+        device_path = detect_device_path(dataset.transformer.phase_config["raw"], dataset.transformer.config_base)
+        if device_path is None:
+            logger.warning("Transformer pipeline unsupported by the device sweep: falling back to the host loop. "
+                           "Supported test pipelines: Standardize / Normalize / PercentileNormalizer "
+                           "(non-channelwise) + ToTensor.")
+            return super().__call__(test_loader)
+        normalize, stats = device_path
+
+        logger.info(f"Processing '{dataset.file_path}' with the device-side sweep...")
+        start = time.perf_counter()
+        # core start positions from the slice grid (spatial part only)
+        starts = np.array([[s.start for s in idx[-3:]] for idx in dataset.raw_slices], dtype=np.int32)
+        patch_shape = tuple(idx.stop - idx.start for idx in dataset.raw_slices[0][-3:])
+
+        with h5py.File(dataset.file_path, "r") as f:
+            raw_dset = f[dataset.raw_internal_path]
+            channels_first = raw_dset.ndim == 4
+            spatial = raw_dset.shape[1:] if channels_first else raw_dset.shape
+            cin = raw_dset.shape[0] if channels_first else 1
+            patch_shape, starts = self._plan_geometry(spatial, patch_shape, starts, dataset.halo_shape, cin)
+            n_voxels = int(np.prod([s + 2 * h for s, h in zip(spatial, dataset.halo_shape)])) * cin
+            if self.max_device_voxels and n_voxels > self.max_device_voxels:
+                # bigger-than-budget volume: stream z-slabs straight from the
+                # file and the finalized planes straight into the output H5 —
+                # host memory stays O(slab), never O(volume)
+                return self._streamed_predict(dataset, raw_dset, spatial, starts, patch_shape, normalize, stats,
+                                              start)
+            raw = raw_dset[:]
+
+        padded = mirror_pad(np.asarray(raw, dtype=np.float32), dataset.halo_shape)
+        sweep = self._get_sweep(patch_shape, dataset.halo_shape, normalize, stats)
+        prediction_array = sweep(padded, starts, stats=stats)  # (Cout, D, H, W)
+        logger.info(f"Finished device inference in {time.perf_counter() - start:.2f} seconds")
+
+        if not self.write_behind:
+            self._save_output(prediction_array, dataset)
+            return None
+        # write-behind: the gzip H5 write runs on a background thread so the
+        # next volume's sweep overlaps it; finalize() joins the tail write
+        self._submit_write(prediction_array, dataset)
+        return None
+
+    def _save_output(self, prediction_array, dataset):
+        """Applies the output transform (segmentation / channel select) and
+        writes the gzip H5; returns the transformed array."""
+        import h5py
+
+        if self.save_segmentation:
+            prediction_array = self._to_segmentation(prediction_array)
+        elif self.prediction_channel is not None:
+            prediction_array = prediction_array[self.prediction_channel : self.prediction_channel + 1]
+
+        output_file = _get_output_file(dataset, output_dir=self.output_dir)
+        logger.info(f"Saving predictions to: {output_file}")
+        with h5py.File(output_file, "w") as h5_output_file:
+            h5_output_file.create_dataset(self.output_dataset, data=prediction_array, compression="gzip")
+        return prediction_array
+
+    def _submit_write(self, prediction_array, dataset):
+        # depth-1 queue: at most one volume-sized write buffer is pending, and
+        # the previous write's exceptions surface on the very next volume
+        # (finalize also retires an idle writer, so create ours after it)
+        self.finalize()
+        if self._writer is None:
+            self._writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="h5-write-behind")
+        future = self._writer.submit(self._save_output, prediction_array, dataset)
+        # safety net for callers that never finalize(): the data still lands
+        # (non-daemon worker joins at interpreter exit) but the error would be
+        # silently swallowed — log it as soon as the write settles
+        future.add_done_callback(
+            lambda f: logger.error(f"write-behind save failed: {f.exception()}") if f.exception() else None)
+        self._write_future = future
+
+    def finalize(self):
+        """Drains the write-behind output write, re-raising its exception if
+        the write failed, and retires the idle writer thread. Call after the
+        last volume (the predict CLI does)."""
+        future, self._write_future = self._write_future, None
+        try:
+            if future is not None:
+                future.result()
+        finally:
+            # nothing pending anymore: release the worker thread
+            if self._write_future is None and self._writer is not None:
+                self._writer.shutdown(wait=True)
+                self._writer = None
+
+    def predict_array(self, volume: np.ndarray, patch_shape, stride_shape, halo_shape,
+                      normalize=None, stats=None) -> np.ndarray:
+        """In-memory sliding-window prediction: (D, H, W) or channels-first
+        (C, D, H, W) numpy in, (Cout, D, H, W) float32 probabilities out.
+        Shares the file path's geometry planning (`patch_mode`), device
+        normalization (`normalize`, `stats`: see `detect_device_path`),
+        blending, z-slab streaming and TTA. No H5 round-trip, no dataset."""
+        volume = np.asarray(volume, dtype=np.float32)
+        assert volume.ndim in (3, 4), f"expected (D, H, W) or (C, D, H, W), got shape {volume.shape}"
+        spatial = volume.shape[-3:]
+        cin = volume.shape[0] if volume.ndim == 4 else 1
+        halo_shape = tuple(int(h) for h in halo_shape)
+        slices = SliceBuilder._build_slices(np.broadcast_to(np.float32(0), spatial), tuple(patch_shape),
+                                            tuple(stride_shape))
+        starts = np.array([[s.start for s in idx[-3:]] for idx in slices], dtype=np.int32)
+        patch_shape = tuple(idx.stop - idx.start for idx in slices[0][-3:])
+        patch_shape, starts = self._plan_geometry(spatial, patch_shape, starts, halo_shape, cin)
+
+        padded_voxels = int(np.prod([s + 2 * h for s, h in zip(spatial, halo_shape)])) * cin
+        if self.max_device_voxels and padded_voxels > self.max_device_voxels:
+            # over-budget volume: the same pipelined z-slab sweep the file
+            # path streams through, landing in an in-memory array
+            out = np.zeros((self.out_channels, *spatial), dtype=np.float32)
+
+            def consume(z, planes):
+                out[:, z : z + planes.shape[1]] = planes
+
+            self._chunked_sweep(volume, starts, patch_shape, halo_shape, normalize, stats, consume)
+            return out
+
+        sweep = self._get_sweep(patch_shape, halo_shape, normalize, stats)
+        return sweep(mirror_pad(volume, halo_shape), starts, stats=stats)
+
+    def _streamed_predict(self, dataset, raw_dset, spatial, starts, patch_shape, normalize, stats, t_start):
+        """Z-slab streaming path for volumes over the device budget: input
+        slabs are read from the open H5 dataset (never the whole volume), and
+        finalized output planes are written straight into a chunked gzip H5
+        dataset. Peak host allocation is O(slab), not O(volume)."""
+        import h5py
+
+        output_file = _get_output_file(dataset, output_dir=self.output_dir)
+        logger.info(f"Saving predictions to: {output_file} (streamed)")
+        with h5py.File(output_file, "w") as out_f:
+            if self.save_segmentation:
+                dset = out_f.create_dataset(self.output_dataset, shape=spatial, dtype="uint16", chunks=True,
+                                            compression="gzip")
+
+                def consume(z, planes):
+                    dset[z : z + planes.shape[1]] = self._to_segmentation(planes)
+            else:
+                n_out = 1 if self.prediction_channel is not None else self.out_channels
+                dset = out_f.create_dataset(self.output_dataset, shape=(n_out, *spatial), dtype="float32",
+                                            chunks=True, compression="gzip")
+
+                def consume(z, planes):
+                    if self.prediction_channel is not None:
+                        planes = planes[self.prediction_channel : self.prediction_channel + 1]
+                    dset[:, z : z + planes.shape[1]] = planes
+
+            self._chunked_sweep(raw_dset, starts, patch_shape, dataset.halo_shape, normalize, stats, consume)
+            logger.info(f"Finished device inference in {time.perf_counter() - t_start:.2f} seconds")
+        return None
+
+    def _chunked_sweep(self, raw, starts, patch_shape, halo_shape, normalize, stats, consume):
+        """Sweeps the grid in z-slabs so only O(slab) data lives on the device
+        (and on the host) at a time — the device-side LazyPredictor analog.
+
+        `raw` is an open h5py dataset (or array), (D, H, W) or (C, D, H, W);
+        each slab is read with `_read_padded_slab` (one contiguous H5 read).
+        Finalized output planes are emitted in ascending-z order through
+        `consume(z_start, planes)` with planes shaped (Cout, dz, H, W).
+
+        The slab loop is a 3-stage pipeline: a loader thread reads and uploads
+        slab i+1 while the device sweeps slab i, and a writer thread runs
+        `consume` (typically a gzip'd H5 write) behind both. The upload runs on
+        the loader thread's current stream, the default stream, so on the
+        device it queues behind the sweep rather than overlapping it. Two input
+        slabs are device-resident at the steady state, so when the plan has
+        more than one slab the per-slab input budget is halved (the configured
+        `max_device_voxels` keeps bounding the TOTAL device input footprint).
+
+        Stitching semantics match the unchunked sweep: `blend: gaussian`
+        accumulates (out, weights) partials in a rolling buffer across slab
+        boundaries; `blend: assign` stitches write-wins inside each slab and
+        lets later slabs overwrite their full z-extent — identical to the
+        reference's write-wins order because the patch grid is z-major
+        ascending.
+        """
+        weighted = self.blend == "gaussian"
+        channels_first = raw.ndim == 4
+        depth = int(raw.shape[1] if channels_first else raw.shape[0])
+        hz = halo_shape[0]
+        cz = patch_shape[0]
+        pz = cz + 2 * hz
+        plane_voxels = int(np.prod([s + 2 * h for s, h in zip(raw.shape[-2:], halo_shape[1:])]))
+        plane_voxels *= raw.shape[0] if channels_first else 1
+        z_capacity = max(int(self.max_device_voxels // max(plane_voxels, 1)), pz)
+
+        sweep = self._get_sweep(patch_shape, halo_shape, normalize, stats)
+
+        # group ascending z-levels into slabs bounded by the device budget
+        z_levels = [int(z) for z in np.unique(starts[:, 0])]
+
+        def _group(cap):
+            groups: list[list[int]] = [[]]
+            for z in z_levels:
+                if groups[-1] and (z - groups[-1][0] + pz) > cap:
+                    groups.append([])
+                groups[-1].append(z)
+            return groups
+
+        slabs = _group(z_capacity)
+        if len(slabs) > 1:
+            # the pipeline keeps the NEXT slab's input device-resident while
+            # the current one computes; halve the per-slab budget so the two
+            # together still respect max_device_voxels
+            z_capacity = max(z_capacity // 2, pz)
+            slabs = _group(z_capacity)
+        logger.info(f"Streamed sweep: {len(z_levels)} z-levels in {len(slabs)} slabs of <= {z_capacity} z-planes")
+
+        # rolling emit buffer over output z-planes [ptr, ptr + buf_out.shape[1])
+        hw = tuple(raw.shape[-2:])
+        cout = self.out_channels
+        buf_out = np.zeros((cout, 0, *hw), dtype=np.float32)
+        buf_w = np.zeros((0, *hw), dtype=np.float32) if weighted else None
+        ptr = 0
+
+        def _load(slab_i):
+            """Loader-thread stage: contiguous H5 slab read + host->device
+            upload; runs for slab i+1 while the device sweeps slab i."""
+            levels = slabs[slab_i]
+            sub = _read_padded_slab(raw, halo_shape, levels[0], levels[-1] + pz)
+            if sub.ndim == 4:
+                sub = np.moveaxis(sub, -1, 0)  # channels-first for the sweep
+            return sweep.upload(sub)
+
+        writes: collections.deque = collections.deque()
+        with ThreadPoolExecutor(max_workers=1) as loader, ThreadPoolExecutor(max_workers=1) as writer:
+            next_slab = loader.submit(_load, 0)
+            for slab_i, slab_levels in enumerate(slabs):
+                z0, z1 = slab_levels[0], slab_levels[-1]
+                sub = next_slab.result()
+                if slab_i + 1 < len(slabs):
+                    next_slab = loader.submit(_load, slab_i + 1)
+                members = np.isin(starts[:, 0], slab_levels)
+                local = starts[members].copy()
+                local[:, 0] -= z0
+                part_out, part_w = sweep.sweep_raw(sub, local, stats=stats)
+                del sub
+                zo = z1 - z0 + cz  # output extent of the slab
+
+                grow = (z0 + zo) - (ptr + buf_out.shape[1])
+                if grow > 0:
+                    buf_out = np.concatenate([buf_out, np.zeros((cout, grow, *hw), np.float32)], axis=1)
+                    if weighted:
+                        buf_w = np.concatenate([buf_w, np.zeros((grow, *hw), np.float32)])
+                lo = z0 - ptr
+                if weighted:
+                    buf_out[:, lo : lo + zo] += part_out
+                    buf_w[lo : lo + zo] += part_w
+                else:
+                    # assign sweeps return unweighted partials; overwrite
+                    # preserves the z-major write-wins order
+                    assert part_w is None
+                    buf_out[:, lo : lo + zo] = part_out
+
+                emit_end = slabs[slab_i + 1][0] if slab_i + 1 < len(slabs) else depth
+                n_emit = emit_end - ptr
+                if n_emit > 0:
+                    planes = buf_out[:, :n_emit]
+                    if weighted:
+                        planes = planes / np.maximum(buf_w[:n_emit], 1e-10)[None]
+                    # writer-thread stage: consume() overlaps the next slab's
+                    # sweep. In assign mode `planes` views the emitted prefix
+                    # of buf_out's base; later slabs only touch base planes
+                    # >= n_emit (or a fresh base after concatenate), so the
+                    # pending write is never mutated under the writer. At
+                    # most one write in flight keeps host RSS O(slab).
+                    while writes:
+                        writes.popleft().result()
+                    writes.append(writer.submit(consume, ptr, planes))
+                    buf_out = buf_out[:, n_emit:]
+                    if weighted:
+                        buf_w = buf_w[n_emit:]
+                    ptr = emit_end
+            while writes:
+                writes.popleft().result()

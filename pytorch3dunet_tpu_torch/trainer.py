@@ -14,10 +14,12 @@ P3DUNET_TAPFOLD=1), the input gradient on K3.
 
 Not ported yet, and refused when a config asks for them: gradient
 accumulation, EMA weights, `resume: auto`, profiler traces and parameter
-histograms (ROADMAP Queue 1 item 9), spatial sharding (item 12). TensorBoard is
-item 9 too: scalars go to the log. Checkpoints are written synchronously, so
-`async_checkpoint` and `async_steps` change nothing but timing and are only
-logged.
+histograms (ROADMAP Queue 1, "Trainer breadth"), spatial sharding
+("Parallelism"), and a `model.dtype: bfloat16` model ("Device augmentation and
+bf16 training": every config that trains in bf16 also augments on the device).
+TensorBoard is "Trainer breadth" too: scalars go to the log. Checkpoints are
+written synchronously, so `async_checkpoint` and `async_steps` change nothing
+but timing and are only logged.
 """
 
 import os
@@ -27,11 +29,12 @@ import numpy as np
 import torch
 
 from pytorch3dunet_tpu_torch.metrics import get_evaluation_metric
-from pytorch3dunet_tpu_torch.utils.misc import RunningAverage, get_logger
+from pytorch3dunet_tpu_torch.utils.misc import (ITEM_AUGMENT, ITEM_PARALLELISM, ITEM_TRAINER, RunningAverage,
+                                                get_logger, not_ported, roadmap)
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
-from pytorch3dunet_tpu_torch.models.unet import get_model
+from pytorch3dunet_tpu_torch.models.unet import compute_dtype, get_model
 from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer
 
@@ -56,6 +59,8 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
 
     device = resolve_device(config.get("device", None))
     logger.info(f"Using device: {device}")
+    if compute_dtype(config["model"].get("dtype")) is not None:
+        raise not_ported(f"training with model.dtype={config['model']['dtype']!r}", ITEM_AUGMENT)
     model = get_model(config["model"]).to(device)
 
     loss_criterion = get_loss_criterion(config)
@@ -67,7 +72,7 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
 
     trainer_config = dict(config["trainer"])
     if trainer_config.pop("tensorboard_formatter", None) is not None:
-        logger.info("trainer.tensorboard_formatter: TensorBoard is not ported yet (ROADMAP Queue 1 item 9); "
+        logger.info(f"trainer.tensorboard_formatter: TensorBoard is not ported yet ({roadmap(ITEM_TRAINER)}); "
                     "scalars go to the log")
     return UNetTrainer(model=model, optimizer=optimizer, lr_scheduler=lr_scheduler, loss_criterion=loss_criterion,
                        eval_criterion=eval_criterion, loaders=loaders, device=device, **trainer_config)
@@ -75,18 +80,17 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
 
 def _refuse_unported(grad_accum_steps, ema_decay, resume, profile_dir, log_params, spatial_sharding):
     """Raises for the trainer options whose results or files the port does not produce yet."""
-    item9 = "ROADMAP Queue 1 item 9"
     refused = {
-        "grad_accum_steps": (int(grad_accum_steps) > 1, item9),
-        "ema_decay": (ema_decay is not None, item9),
-        "resume": (resume == "auto", item9),
-        "profile_dir": (bool(profile_dir), item9),
-        "log_params": (bool(log_params), item9),
-        "spatial_sharding": (bool(spatial_sharding), "ROADMAP Queue 1 item 12"),
+        "grad_accum_steps": (int(grad_accum_steps) > 1, ITEM_TRAINER),
+        "ema_decay": (ema_decay is not None, ITEM_TRAINER),
+        "resume": (resume == "auto", ITEM_TRAINER),
+        "profile_dir": (bool(profile_dir), ITEM_TRAINER),
+        "log_params": (bool(log_params), ITEM_TRAINER),
+        "spatial_sharding": (bool(spatial_sharding), ITEM_PARALLELISM),
     }
     for key, (is_set, item) in refused.items():
         if is_set:
-            raise NotImplementedError(f"trainer.{key} is not ported to PyTorch yet ({item})")
+            raise not_ported(f"trainer.{key}", item)
 
 
 class UNetTrainer:

@@ -13,7 +13,7 @@ import shutil
 
 import torch
 
-from pytorch3dunet_tpu_torch.utils.weights import refuse_jax_checkpoint
+from pytorch3dunet_tpu_torch.utils.weights import is_jax_checkpoint
 
 LAST_CHECKPOINT = "last_checkpoint.pytorch"
 BEST_CHECKPOINT = "best_checkpoint.pytorch"
@@ -37,9 +37,13 @@ def save_checkpoint(state: dict, is_best: bool, checkpoint_dir: str):
 
 
 def load_checkpoint(path) -> dict:
-    """Reads a torch-format checkpoint onto the CPU; a JAX npz checkpoint
-    raises with the convert hint."""
+    """Reads a torch-format checkpoint onto the CPU, for `resume` and
+    `pre_trained`. A JAX npz checkpoint raises: its optimizer state is
+    optax's; the predict CLI reads its weights (`utils/weights.py`)."""
     if not os.path.exists(path):
         raise OSError(f"Checkpoint '{path}' does not exist")
-    refuse_jax_checkpoint(path)
+    if is_jax_checkpoint(path):
+        raise ValueError(f"{path} is a JAX-format checkpoint, which the port's trainer does not resume from (its "
+                         f"optimizer state is optax's); convert its weights first with `convert3dunet --config "
+                         f"<config.yml> -i {path} -o <out>.pytorch --to torch`")
     return torch.load(path, map_location="cpu", weights_only=True)

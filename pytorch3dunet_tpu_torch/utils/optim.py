@@ -10,11 +10,10 @@ name raises until it is ported.
 
 import torch
 
-from pytorch3dunet_tpu_torch.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_TRAINER, get_logger, not_ported
 
 logger = get_logger("Optim")
 
-_ITEM = "ROADMAP Queue 1 item 9"
 # the JAX package's other optimizer and scheduler names
 _NOT_PORTED_OPTIMIZERS = ("Adadelta", "Adagrad", "AdamW", "SparseAdam", "Adamax", "LBFGS", "NAdam", "RAdam",
                           "RMSprop", "Rprop")
@@ -29,9 +28,9 @@ def create_optimizer(optimizer_config: dict, model: torch.nn.Module) -> torch.op
     learning_rate = optimizer_config.get("learning_rate", 1e-3)
     weight_decay = optimizer_config.get("weight_decay", 0)
     if name in _NOT_PORTED_OPTIMIZERS:
-        raise NotImplementedError(f"optimizer {name} is not ported to PyTorch yet ({_ITEM})")
+        raise not_ported(f"optimizer {name}", ITEM_TRAINER)
     if optimizer_config.get("mu_dtype") is not None:
-        raise NotImplementedError(f"optimizer.mu_dtype is not ported to PyTorch yet ({_ITEM})")
+        raise not_ported("optimizer.mu_dtype", ITEM_TRAINER)
     if name == "Adam":
         betas = tuple(optimizer_config.get("betas", (0.9, 0.999)))
         return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=betas, weight_decay=weight_decay)
@@ -48,7 +47,7 @@ def create_lr_scheduler(lr_config: dict | None, optimizer: torch.optim.Optimizer
     lr_config = dict(lr_config)
     name = lr_config.pop("name")
     if name in _NOT_PORTED_SCHEDULERS:
-        raise NotImplementedError(f"lr scheduler {name} is not ported to PyTorch yet ({_ITEM})")
+        raise not_ported(f"lr scheduler {name}", ITEM_TRAINER)
     if name != "ReduceLROnPlateau":
         raise RuntimeError(f"Unsupported lr scheduler: '{name}'")
     # the JAX class's arguments and defaults (torch's are the same)

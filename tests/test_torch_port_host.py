@@ -362,6 +362,21 @@ def test_port_sources_name_no_module_of_the_jax_package():
     assert [hit for path in sources for hit in _jax_package_names(path)] == []
 
 
+def test_refusals_name_live_roadmap_items():
+    # every ROADMAP item a refusal names is the title of a live Queue 1 item,
+    # and no port source names an item by its number
+    from pytorch3dunet_tpu_torch.utils import misc
+
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    queue1 = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
+    titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", queue1, flags=re.M))
+    named = {value for key, value in vars(misc).items() if key.startswith("ITEM_")}
+    assert len(named) == 6 and named <= titles, named - titles
+    numbered = [f"{path.name}:{n}" for path in sorted(PORT.rglob("*.py"))
+                for n, line in enumerate(path.read_text().splitlines(), 1) if re.search(r"\bitem \d", line)]
+    assert numbered == []
+
+
 def test_guard_finds_imports_and_module_strings(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import pytorch3dunet_tpu\nfrom pytorch3dunet_tpu.utils import misc\n"

@@ -89,7 +89,7 @@ def test_flatten_and_dice_are_per_channel():
 
 @pytest.mark.parametrize("name", ["CrossEntropyLoss", "GeneralizedDiceLoss", "MSELoss", "WeightedSmoothL1Loss"])
 def test_unported_losses_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="The rest of the losses and metrics"):
         get_loss_criterion({"loss": {"name": name}})
 
 

@@ -101,7 +101,7 @@ def test_other_families_are_not_ported_yet(name):
         get_model({"name": name, "in_channels": 1, "out_channels": 1})
 
 
-@pytest.mark.parametrize("key,value", [("upsample", "deconv"), ("dtype", "bfloat16"), ("conv_kernel_size", 5)])
+@pytest.mark.parametrize("key,value", [("upsample", "deconv"), ("remat", True), ("conv_kernel_size", 5)])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model({**BASE, "out_channels": 1, key: value})

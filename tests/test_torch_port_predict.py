@@ -141,16 +141,6 @@ def test_saved_outputs(workload, option):
         np.testing.assert_allclose(got, probs, atol=2e-4)
 
 
-def test_jax_checkpoint_raises_with_convert_hint(tmp_path):
-    from pytorch3dunet_tpu.utils.checkpoint import save_checkpoint
-
-    variables = jax_get_model(dict(MODEL)).init(jax.random.PRNGKey(0))
-    save_checkpoint({"num_epochs": 1, "num_iterations": 1, "model_state_dict": variables, "best_eval_score": 0.0,
-                     "optimizer_state_dict": None}, False, str(tmp_path))
-    with pytest.raises(ValueError, match="convert3dunet .* --to torch"):
-        load_weights(get_model(MODEL), str(tmp_path / "last_checkpoint.pytorch"))
-
-
 def test_config_overrides_and_autodetect(tmp_path, monkeypatch):
     # the confocal config has no 'device' key: without a card it raises and
     # names `device: cpu`; with one it takes cuda, in float32

@@ -171,7 +171,7 @@ def test_deconv_gives_2n_minus_1_then_the_skip_size():
 def test_resnet_block_strips_the_activation_of_conv3(order, act):
     block = blocks.ResNetBlock(4, 8, order=order, num_groups=2)
     assert isinstance(block.conv1, conv3d.Conv3d) and block.conv1.kernel_size == (1, 1, 1)
-    assert [type(m) for m in block.conv3.children()] == [torch.nn.GroupNorm, conv3d.Conv3d]
+    assert [type(m) for m in block.conv3.children()] == [blocks.GroupNorm, conv3d.Conv3d]
     assert isinstance(block.non_linearity, act)
     if act is torch.nn.LeakyReLU:
         assert block.non_linearity.negative_slope == 0.1

@@ -182,9 +182,9 @@ def test_plateau_scheduler_lr_sequence_matches_jax(config):
 
 
 @pytest.mark.parametrize("section,config,item", [
-    ("optimizer", {"name": "AdamW"}, "item 9"),
-    ("optimizer", {"name": "Adam", "mu_dtype": "bfloat16"}, "item 9"),
-    ("lr_scheduler", {"name": "StepLR", "step_size": 2}, "item 9"),
+    ("optimizer", {"name": "AdamW"}, "Trainer breadth"),
+    ("optimizer", {"name": "Adam", "mu_dtype": "bfloat16"}, "Trainer breadth"),
+    ("lr_scheduler", {"name": "StepLR", "step_size": 2}, "Trainer breadth"),
 ])
 def test_unported_optimizers_and_schedulers_raise(section, config, item):
     model = torch.nn.Linear(2, 2)
@@ -204,8 +204,9 @@ def test_adam_is_the_default_with_l2_weight_decay():
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("grad_accum_steps", 2, "item 9"), ("ema_decay", 0.99, "item 9"), ("resume", "auto", "item 9"),
-    ("profile_dir", "prof", "item 9"), ("log_params", True, "item 9"), ("spatial_sharding", True, "item 12"),
+    ("grad_accum_steps", 2, "Trainer breadth"), ("ema_decay", 0.99, "Trainer breadth"),
+    ("resume", "auto", "Trainer breadth"), ("profile_dir", "prof", "Trainer breadth"),
+    ("log_params", True, "Trainer breadth"), ("spatial_sharding", True, "Parallelism"),
 ])
 def test_unported_trainer_options_raise(tmp_path, option, value, item):
     config = _config(tmp_path, {"learning_rate": 1e-3}, **{option: value})
