@@ -81,6 +81,27 @@ download) on phase 4's volume:
      grid; 14 K1 + 4 K2 bf16 launches per forward), against the same bf16 sweep
      with the plain conv and against its f32 sweep, which is held to phase 11's
      host output.
+Phases 18-20 drive the device augmentation and bf16 training of the `_tpu`
+train configs (the spec that `split_device_transforms` gives for their train
+transformer: flip, rot90, rotate, elastic paired; blur and two noises on the
+raw; StandardLabelToBoundary on the device):
+ 18. the `DeviceAugmenter` on phase 7's 80x170x170 batch (standardized raw and
+     its instance label), every transform at probability 1, on the card
+     against the CPU with the same draws (raw relative error, count of label
+     voxels that differ); each transform's time, the whole augmenter at the
+     config's probabilities (median of 5) and its peak memory;
+ 19. UNet3D in bf16, the confocal `_tpu` train config at full width: (a) one
+     bf16 step's grads (14 bf16 K2, 14 bf16 K3) against the same step with
+     the plain conv, and their distance from a float64 step; (b) 6 Adam steps
+     on the batch: the loss falls, parameters and moments stay float32; (c)
+     `create_trainer(config, loaders=...)` with the device augmentation, 6
+     steps and 1 validation: 14 bf16 K2 a forward, 14 bf16 K3 a step, no f32
+     K2 or K3, finite losses, a checkpoint that loads into an f32 model; the
+     bf16 step against phase 8's f32 step, the augmented step and the
+     augmenter's share, the profile and cuDNN's bf16 weight gradient;
+ 20. ResidualUNet3D in bf16 under P3DUNET_TAPFOLD=1, the lightsheet-boundary
+     `_tpu` train config: 2 augmented steps (14 bf16 K1 and 4 bf16 K2 a
+     forward, 18 bf16 K3 a step), one step's grads as in 19(a), the step time.
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -177,6 +198,32 @@ LARGE_GN_TOL = 1e-3
 # bf16 probabilities against the same bf16 sweep with the plain conv, and
 # against the f32 sweep: ceilings, the measured values are printed
 BF16_VS_PLAIN_TOL, BF16_VS_F32_TOL = 2e-2, 5e-2
+# the loaders section of resources/3DUnet_confocal_boundary_tpu/train_config.yml
+# that split_device_transforms reads (its lightsheet_boundary sibling has the
+# same train transformer): device_augment and the train transformer
+TPU_LOADERS = {"device_augment": True, "train": {"transformer": {
+    "raw": [{"name": "Standardize"}, {"name": "RandomFlip"}, {"name": "RandomRotate90"},
+            {"name": "RandomRotate", "axes": [[2, 1]], "angle_spectrum": 45, "mode": "reflect"},
+            {"name": "ElasticDeformation", "spline_order": 3},
+            {"name": "GaussianBlur3D", "execution_probability": 0.5},
+            {"name": "AdditiveGaussianNoise", "execution_probability": 0.2},
+            {"name": "AdditivePoissonNoise", "execution_probability": 0.2},
+            {"name": "ToTensor", "expand_dims": True}],
+    "label": [{"name": "RandomFlip"}, {"name": "RandomRotate90"},
+              {"name": "RandomRotate", "axes": [[2, 1]], "angle_spectrum": 45, "mode": "reflect"},
+              {"name": "ElasticDeformation", "spline_order": 0},
+              {"name": "StandardLabelToBoundary", "append_label": True},
+              {"name": "ToTensor", "expand_dims": False}]}}}
+# the device augmenter on the card against the same draws on the CPU: raw
+# relative to max |raw| (a ceiling: f32 sums in another order, the measured
+# value is printed), labels as the share of voxels that differ (order-0
+# resampling at coordinates that differ by f32 roundoff)
+AUG_RAW_TOL, AUG_LABEL_SHARE = 1e-4, 1e-5
+# a bf16 step's parameter grads with the kernels against the same bf16 step
+# with the plain conv, max |d| over all tensors relative to the step's max |g|:
+# a ceiling (both are bf16-noisy; at the CPU tests' width the bf16 step sits
+# 0.065 from the f32 step by this measure)
+BF16_STEP_VS_PLAIN_TOL = 0.1
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
 # bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -375,6 +422,10 @@ def profile_step(step, step_ms, top=12, tag="9 profile", what="one train step"):
     others = sorted((name for name in by_name if name not in ours), key=by_name.get, reverse=True)
     for name in ours + others[:top]:
         log(f"[{tag}] {by_name[name]:9.2f} ms {100 * by_name[name] / busy_ms:5.1f}%  {name[:110]}")
+    wgrad_ms = sum(ms for name, ms in by_name.items() if "wgrad" in name.lower())
+    if wgrad_ms:
+        log(f"[{tag}] cuDNN's weight-gradient kernels (names with 'wgrad'): {wgrad_ms:.2f} ms "
+            f"({100 * wgrad_ms / busy_ms:.1f}% of the busy time)")
     return busy_ms / step_ms
 
 
@@ -861,6 +912,285 @@ def device_sweep_phases(device, volume, host, res_host_out):
     return {"launches": launches}
 
 
+def augment_phase(device, batch):
+    """Phase 18: the device augmenter of the confocal `_tpu` train config on
+    one full-size batch, on the card against the CPU with the same draws, and
+    its times. `batch` is (raw, instance label), NCDHW numpy."""
+    from pytorch3dunet_tpu_torch.ops import augment
+
+    spec = augment.split_device_transforms(copy.deepcopy(TPU_LOADERS))
+    names = ([e["raw"]["name"] for e in spec["paired"]], [c["name"] for c in spec["raw_only"]],
+             spec["label_post"]["name"])
+    want = (["RandomFlip", "RandomRotate90", "RandomRotate", "ElasticDeformation"],
+            ["GaussianBlur3D", "AdditiveGaussianNoise", "AdditivePoissonNoise"], "StandardLabelToBoundary")
+    check(names == want, f"the confocal _tpu spec is {names}")
+    check(spec["paired"][3]["raw"]["spline_order"] == 3 and spec["paired"][3]["label"]["spline_order"] == 0,
+          "elastic orders")
+    raw, label = (torch.from_numpy(a).to(device) for a in batch)
+    every = augment.DeviceAugmenter(augment.execution_probability_one(spec))
+
+    def generators(seed):
+        return torch.Generator().manual_seed(seed), torch.Generator(device=device).manual_seed(seed + 1)
+
+    # every transform runs; the same draws, made once on the card, on the CPU
+    draws = every.draw(raw.shape, generators(SEED))
+
+    def on_cpu(value):
+        if torch.is_tensor(value):
+            return value.cpu()
+        if isinstance(value, dict):
+            return {k: on_cpu(v) for k, v in value.items()}
+        return [on_cpu(v) for v in value] if isinstance(value, list) else value
+
+    draws_cpu = on_cpu(draws)
+    out_raw, out_label = every.apply(raw, label, draws)
+    torch.cuda.synchronize()
+    cpu_raw, cpu_label = every.apply(raw.cpu(), label.cpu(), draws_cpu)
+    raw_err = (out_raw.cpu() - cpu_raw).abs().max().item() / cpu_raw.abs().max().item()
+    differ = int((out_label.cpu() != cpu_label).sum())
+    share = differ / cpu_label.numel()
+    moved = (out_label[:, 1:] != label).float().mean().item()
+    log(f"[18 augment] confocal _tpu spec on {tuple(raw.shape)}: paired {names[0]}, raw only {names[1]}, label "
+        f"post {names[2]}; every transform at probability 1: card vs CPU, same draws: raw max|d| / max|raw| = "
+        f"{raw_err:.3e} (ceiling {AUG_RAW_TOL}); labels {differ} of {cpu_label.numel()} voxels differ ({share:.2e}, "
+        f"at most {AUG_LABEL_SHARE}); target {tuple(out_label.shape)}; the geometry moved {100 * moved:.1f}% of "
+        f"the label voxels")
+    check(out_raw.shape == raw.shape and out_label.shape == (1, 2, *TRAIN_PATCH), f"{out_raw.shape} {out_label.shape}")
+    check(bool(torch.isfinite(out_raw).all()), "augmented raw is not finite")
+    check(raw_err <= AUG_RAW_TOL, f"the augmenter on the card differs from the CPU by {raw_err} of max|raw|")
+    check(share <= AUG_LABEL_SHARE, f"{differ} label voxels differ between the card and the CPU")
+    del cpu_raw, cpu_label, draws_cpu
+
+    # each transform alone, every probability at 1, with the draws above
+    d = draws[0]
+    r, lab = raw[0], label[0]
+    (flip, rot90, rotate, elastic), (blur, noise, poisson) = d["paired"], d["raw_only"]
+    rot_axes = augment._rotate_axes(spec["paired"][2]["raw"])
+    ops = {
+        "RandomFlip (raw + label)": lambda: (augment.random_flip(r, [1, 1, 1]), augment.random_flip(lab, [1, 1, 1])),
+        "RandomRotate90 (raw + label)": lambda: (augment.random_rotate90(r, 1), augment.random_rotate90(lab, 1)),
+        "RandomRotate order 0 (raw + label)": lambda: (
+            augment.random_rotate(r, rotate["plane"], rotate["angle"], rot_axes, 0),
+            augment.random_rotate(lab, rotate["plane"], rotate["angle"], rot_axes, 0)),
+        "ElasticDeformation raw order 3": lambda: augment.elastic_deformation(r, 0.0, elastic["fields"], 3,
+                                                                              execution_probability=1.0),
+        "ElasticDeformation label order 0": lambda: augment.elastic_deformation(lab, 0.0, elastic["fields"], 0,
+                                                                                execution_probability=1.0),
+        "GaussianBlur3D": lambda: augment.gaussian_blur(r, 0.0, blur["sigma"], 1.0),
+        "AdditiveGaussianNoise (draw + add)": lambda: augment.additive_gaussian_noise(
+            r, 0.0, noise["std"], torch.randn(r.shape, device=device), 1.0),
+        "AdditivePoissonNoise (draw + add)": lambda: augment.additive_poisson_noise(
+            r, 0.0, torch.poisson(torch.full(r.shape, poisson["rate"], device=device)), 1.0),
+        "StandardLabelToBoundary": lambda: augment.standard_label_to_boundary(lab[0], append_label=True),
+    }
+    for name, fn in ops.items():
+        log(f"[18 augment] {name:36s} {timed_ms(fn):8.3f} ms")
+    every_ms = timed_ms(lambda: every(raw, label, generators(SEED + 2)))
+    augmenter = augment.DeviceAugmenter(spec)
+    gens = generators(SEED + 4)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    config_runs = []
+    for _ in range(RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        augmenter(raw, label, gens)
+        end.record()
+        torch.cuda.synchronize()
+        config_runs.append(start.elapsed_time(end))
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    config_ms = statistics.median(config_runs)
+    log(f"[18 augment] the whole augmenter, draws included: every transform {every_ms:.2f} ms | the config's "
+        f"probabilities median {config_ms:.2f} ms of {RUNS} ({', '.join(f'{t:.2f}' for t in config_runs)}), "
+        f"peak memory above its inputs {peak_gib:.2f} GiB")
+
+
+def bf16_train_phases(device, batches, f32_step_ms):
+    """Phases 19-20: bf16 training of the confocal (UNet3D) and
+    lightsheet-boundary (ResidualUNet3D, P3DUNET_TAPFOLD=1) `_tpu` train
+    configs with their device augmentation. `batches` is phase 7's
+    (train, val) pair, `f32_step_ms` phase 8's f32 step. Returns the launches
+    of each path by kernel and dtype."""
+    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter
+    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+    from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint
+    from pytorch3dunet_tpu_torch.utils.optim import create_optimizer
+
+    (raw, target), val_batch = batches
+    inp = torch.from_numpy(raw).to(device)
+    tgt = torch.from_numpy(target).to(device)
+    # what the stripped host pipeline yields: standardized raw, instance label with a channel axis
+    host_batch = (raw, np.ascontiguousarray(target[:, 1:]))
+    launches = {}
+
+    def counted(path, fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = launches_by_dtype()
+        return out
+
+    def expect(path, k2=(0, 0), k3=(0, 0), k1=(0, 0)):
+        want = {"conv3d_fwd": dict(zip(("f32", "bf16"), k2)), "conv3d_packw": dict(zip(("f32", "bf16"), k3)),
+                "conv3d_im2col": dict(zip(("f32", "bf16"), k1))}
+        check(launches[path] == want, f"{path} launched {launches[path]}, expected {want}")
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    def grads_vs(config, tag, phase):
+        """One bf16 step's grads with the kernels against the plain conv (a
+        ceiling) and against a float64 plain step (printed)."""
+        torch.manual_seed(SEED)
+        model = get_model(config["model"])
+        randomize_group_norms(model, torch.Generator().manual_seed(SEED + 1))
+        model = model.to(device).train()
+        criterion = get_loss_criterion(config)
+
+        def step_grads(m, x):
+            m.zero_grad(set_to_none=True)
+            loss = criterion(m(x)[1], tgt.to(x.dtype))
+            loss.backward()
+            return {name: p.grad.detach().double() for name, p in m.named_parameters()}, loss
+
+        grads, loss = counted(f"{tag}_step", lambda: step_grads(model, inp))
+        check(loss.dtype == torch.float32 and all(p.grad.dtype == torch.float32 for p in model.parameters()),
+              f"{tag}: the bf16 step's loss or grads are not float32")
+        with plain_conv():
+            grads_plain, _ = step_grads(model, inp)
+            m64 = get_model({**config["model"], "dtype": None})
+            m64.load_state_dict(model.state_dict())
+            grads64, _ = step_grads(m64.to(device).double().train(), inp.double())
+        g_max = max(g.abs().max().item() for g in grads_plain.values())
+        vs_plain = max(((g - grads_plain[k]).abs().max().item() / g_max, k) for k, g in grads.items())
+        g64_max = max(g.abs().max().item() for g in grads64.values())
+        vs64 = max(((g - grads64[k]).abs().max().item() / g64_max, k) for k, g in grads.items())
+        plain64 = max(((g - grads64[k]).abs().max().item() / g64_max, k) for k, g in grads_plain.items())
+        per_tensor = max((rel(g, grads_plain[k]), k) for k, g in grads.items())
+        log(f"[{phase}] one bf16 step, {len(grads)} tensors: kernels vs plain conv (bf16) worst max|d| / max|g| "
+            f"{vs_plain[0]:.3e} ({vs_plain[1]}, ceiling {BF16_STEP_VS_PLAIN_TOL}); per tensor / its own max|g| "
+            f"worst {per_tensor[0]:.3e} ({per_tensor[1]}); from a float64 plain step: kernels {vs64[0]:.3e} "
+            f"({vs64[1]}), plain bf16 {plain64[0]:.3e} ({plain64[1]}); loss {loss.item():.5f}")
+        check(all(math.isfinite(g.abs().max().item()) for g in grads.values()), f"{tag}: bf16 grads not finite")
+        check(vs_plain[0] <= BF16_STEP_VS_PLAIN_TOL, f"{tag}: bf16 step grads differ from the plain conv's by "
+                                                     f"{vs_plain[0]} at {vs_plain[1]}")
+        del grads, grads_plain, grads64, m64
+        return model, criterion
+
+    def fit(config, n_steps, validate_after, tag, phase):
+        """The trainer's own fit with the device augmentation on: `n_steps`
+        steps from the host batch, a validation every `validate_after`."""
+        losses, augment_ms = [], []
+        with tempfile.TemporaryDirectory() as checkpoint_dir:
+            config = copy.deepcopy(config)
+            config["trainer"] = {"eval_score_higher_is_better": False, "checkpoint_dir": checkpoint_dir,
+                                 "validate_after_iters": validate_after, "log_after_iters": 10**9,
+                                 "max_num_epochs": 10**9, "max_num_iterations": n_steps - 1}
+            trainer = create_trainer(config, loaders={"train": [host_batch], "val": [val_batch]})
+            check(isinstance(trainer.device_augmenter, DeviceAugmenter), f"{tag}: no device augmenter")
+            criterion = trainer.loss_criterion
+
+            def recording_criterion(logits, target):
+                loss = criterion(logits, target)
+                if torch.is_grad_enabled():
+                    losses.append(loss.item())
+                return loss
+
+            trainer.loss_criterion = recording_criterion
+            start = time.perf_counter()
+            counted(tag, trainer.fit)
+            fit_s = time.perf_counter() - start
+            trainer.loss_criterion = criterion
+            ckpt = None
+            if n_steps >= validate_after:
+                ckpt_path = Path(checkpoint_dir) / "last_checkpoint.pytorch"
+                state = load_checkpoint(ckpt_path)
+                check(all(v.dtype == torch.float32 for v in state["model_state_dict"].values()
+                          if v.is_floating_point()), f"{tag}: the checkpoint is not float32")
+                get_model({**config["model"], "dtype": None}).load_state_dict(state["model_state_dict"], strict=True)
+                ckpt = f"{ckpt_path.name} loads strictly into an f32 model"
+        log(f"[{phase}] fit with device augmentation: {n_steps} steps of {TRAIN_PATCH} in {fit_s:.2f} s; launches "
+            f"{launches[tag]}; losses {', '.join(f'{v:.5f}' for v in losses)}" + (f"; {ckpt}" if ckpt else ""))
+        check(len(losses) == n_steps and all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+        return trainer
+
+    # 19. UNet3D, the confocal _tpu train config
+    config = {"manual_seed": SEED, "device": "cuda", "model": {**MODEL, "dtype": "bfloat16"}, **TRAIN_SECTIONS,
+              "loaders": copy.deepcopy(TPU_LOADERS)}
+    n_conv = 14
+    # (a) one bf16 step on the fixed batch, no augmentation
+    model, criterion = grads_vs(config, "train_bf16", "19 bf16 train")
+    expect("train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
+    optimizer = create_optimizer(config["optimizer"], model)
+
+    def train_step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = criterion(model(inp)[1], tgt)
+        loss.backward()
+        optimizer.step()
+        return loss
+
+    # (b) 6 Adam steps on that batch
+    losses = [train_step().item() for _ in range(TRAIN_STEPS)]
+    moments = [t for state in optimizer.state.values() for t in (state["exp_avg"], state["exp_avg_sq"])]
+    f32_state = all(p.dtype == torch.float32 for p in model.parameters()) and all(
+        t.dtype == torch.float32 for t in moments) and len(moments) == 2 * len(list(model.parameters()))
+    log(f"[19 bf16 train] {TRAIN_STEPS} Adam steps on the batch: losses {', '.join(f'{v:.5f}' for v in losses)}; "
+        f"parameters and Adam moments float32: {f32_state}")
+    check(losses[-1] < losses[0] and all(math.isfinite(v) for v in losses), f"bf16 loss did not fall: {losses}")
+    check(f32_state, "bf16 training left a parameter or a moment outside float32")
+    # (c) the trainer's own fit with augmentation: 6 steps and 1 validation
+    trainer = fit(config, TRAIN_STEPS, TRAIN_STEPS, "train_bf16_augmented", "19 bf16 train")
+    expect("train_bf16_augmented", k2=(0, n_conv * (TRAIN_STEPS + 1)), k3=(0, n_conv * TRAIN_STEPS))
+    # times: the bf16 step, the augmented step and the augmenter's share
+    augmenter, gens = trainer.device_augmenter, trainer.augment_generators
+    label = torch.from_numpy(host_batch[1]).to(device)
+
+    def augmented_step():
+        x, y = augmenter(inp, label, gens)
+        optimizer.zero_grad(set_to_none=True)
+        criterion(model(x)[1], y).backward()
+        optimizer.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(train_step)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    augmented_ms = timed_ms(augmented_step)
+    augmenter_ms = timed_ms(lambda: augmenter(inp, label, gens))
+    voxels = np.prod(TRAIN_PATCH)
+    log(f"[19 bf16 train step] {TRAIN_PATCH} batch 1, forward + backward + Adam: bf16 {step_ms:.2f} ms "
+        f"({voxels / step_ms / 1e3:.3f} Mvoxel/s) against phase 8's f32 {f32_step_ms:.2f} ms "
+        f"({f32_step_ms / step_ms:.2f}x) | with the device augmentation at the config's probabilities "
+        f"{augmented_ms:.2f} ms, the augmenter alone {augmenter_ms:.2f} ms ({100 * augmenter_ms / augmented_ms:.1f}% "
+        f"of the augmented step) | peak memory {peak_gib:.2f} GiB")
+    profile_step(train_step, step_ms, top=10, tag="19 profile", what="one bf16 UNet3D train step")
+    del model, optimizer, trainer, augmenter
+    torch.cuda.empty_cache()
+
+    # 20. ResidualUNet3D, the lightsheet-boundary _tpu train config, under the switch
+    os.environ["P3DUNET_TAPFOLD"] = "1"
+    try:
+        config = {"manual_seed": SEED, "device": "cuda", "model": {**RES_MODEL, "dtype": "bfloat16"},
+                  **TRAIN_SECTIONS, "lr_scheduler": dict(RES_LR_SCHEDULER), "loaders": copy.deepcopy(TPU_LOADERS)}
+        trainer = fit(config, 2, 10**9, "resunet_train_bf16_augmented", "20 resunet bf16 train")
+        expect("resunet_train_bf16_augmented", k2=(0, 4 * 2), k1=(0, 14 * 2), k3=(0, 18 * 2))
+        del trainer
+        model, criterion = grads_vs(config, "resunet_train_bf16", "20 resunet bf16 train")
+        expect("resunet_train_bf16_step", k2=(0, 4), k1=(0, 14), k3=(0, 18))
+        optimizer = create_optimizer(config["optimizer"], model)
+        step_ms = timed_ms(train_step)
+        log(f"[20 resunet bf16 train step] {TRAIN_PATCH} batch 1: bf16 {step_ms:.2f} ms "
+            f"({voxels / step_ms / 1e3:.3f} Mvoxel/s)")
+        del model, optimizer
+        torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("P3DUNET_TAPFOLD", None)
+    return launches
+
+
 def synthetic_batch(rs):
     """One (raw, target) batch of the confocal recipe's shape: an instance
     label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
@@ -1230,10 +1560,17 @@ def main():
     # 15-17. the device sweep, f32 and bf16
     sweep = device_sweep_phases(device, volume, host, res["predict_out"])
 
+    # 18. device augmentation at full size
+    augment_phase(device, (train_batch[0], np.ascontiguousarray(train_batch[1][:, 1:])))
+
+    # 19-20. bf16 training with device augmentation
+    bf16 = bf16_train_phases(device, (train_batch, val_batch), step_ms)
+
+    by_path_dtype = {**sweep["launches"], **bf16}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}
-                for path, by_dtype in sweep["launches"].items()}}
+                for path, by_dtype in by_path_dtype.items()}}
     k2_bound = summed_bound([(shape, f, True) for _, shape, f in shapes], tc_bound)
     k2_bound_ffma = summed_bound([(shape, f, True) for _, shape, f in shapes])
     k3_bound = summed_bound([(shape, c, False) for _, shape, c in train_dgrads], tc_bound)
@@ -1242,7 +1579,7 @@ def main():
         {"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
          "launches_by_path": {path: counts["conv3d_fwd"] for path, counts in paths.items()},
-         "launches_by_path_dtype": {path: counts["conv3d_fwd"] for path, counts in sweep["launches"].items()},
+         "launches_by_path_dtype": {path: counts["conv3d_fwd"] for path, counts in by_path_dtype.items()},
          "max_abs_err": max(errors[torch.float32], res["errors_k2"][torch.float32]),
          "max_abs_err_bf16": max(errors[torch.bfloat16], res["errors_k2"][torch.bfloat16]), "ms": conv_ms,
          "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
@@ -1254,7 +1591,7 @@ def main():
         {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
          "launches_by_path": {path: counts["conv3d_packw"] for path, counts in paths.items()},
-         "launches_by_path_dtype": {path: counts["conv3d_packw"] for path, counts in sweep["launches"].items()},
+         "launches_by_path_dtype": {path: counts["conv3d_packw"] for path, counts in by_path_dtype.items()},
          "max_abs_err": max(errors_k3[torch.float32], res["errors_k3"][torch.float32]),
          "max_abs_err_bf16": max(errors_k3[torch.bfloat16], res["errors_k3"][torch.bfloat16]),
          "ms": k3_sums["kernel_ms"], "plain_ms": k3_sums["reference_ms"], "bound_ms": k3_bound[0],
@@ -1266,7 +1603,7 @@ def main():
         {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
          "launches_by_path": {path: counts["conv3d_im2col"] for path, counts in paths.items()},
-         "launches_by_path_dtype": {path: counts["conv3d_im2col"] for path, counts in sweep["launches"].items()},
+         "launches_by_path_dtype": {path: counts["conv3d_im2col"] for path, counts in by_path_dtype.items()},
          "max_abs_err": res["errors"][torch.float32], "max_abs_err_bf16": res["errors"][torch.bfloat16],
          "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"], "plain_tf32_ms": res["k1_plain_tf32_ms"],
          "bound_ms": res["k1_bound"][0], "bound_by": res["k1_bound"][1], "bound_ffma_ms": res["k1_bound_ffma"][0],

@@ -18,9 +18,8 @@ asserts equality against a live reference install), because the paired-seed
 trick only works when both pipelines consume the identical draw sequence.
 Everything else — names, structure, messages — is this module's own.
 
-The port's own copy of pytorch3dunet_tpu/augment/transforms.py; the JAX
-package's on-device augmentation is not ported yet (ROADMAP Queue 1, "Device augmentation and bf16
-training").
+The port's own copy of pytorch3dunet_tpu/augment/transforms.py; the
+on-device augmentation is ops/augment.py.
 """
 
 import importlib

@@ -18,7 +18,7 @@ import numpy as np
 from scipy.ndimage import zoom
 
 from pytorch3dunet_tpu_torch.datasets.loader import ConcatDataset, DataLoader
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, ITEM_AUGMENT, get_class, get_logger, not_ported
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, get_class, get_logger, not_ported
 
 logger = get_logger("Dataset")
 
@@ -260,8 +260,6 @@ def get_train_loaders(config: dict, seed: int | None = None) -> dict:
     `seed`, or numpy's global RNG when None), the val loader does not."""
     assert "loaders" in config, "Could not find data loaders configuration"
     loaders_config = config["loaders"]
-    if loaders_config.get("device_augment", False):
-        raise not_ported("loaders.device_augment", ITEM_AUGMENT)
     assert set(loaders_config["train"]["file_paths"]).isdisjoint(loaders_config["val"]["file_paths"]), (
         "Train and validation 'file_paths' overlap. One cannot use validation data for training!"
     )

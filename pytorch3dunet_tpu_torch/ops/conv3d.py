@@ -199,9 +199,11 @@ class Conv3dFunction(torch.autograd.Function):
 
     forward: `conv3d_fwd` (on CUDA K2, or K1 by `forward_variant`). backward:
     dx by `conv3d_input_grad` (K3 on CUDA) when x needs a gradient, dw by
-    `torch.nn.grad.conv3d_weight` on NCDHW views, db by summing dy. In the UNet, dy arrives NDHWC-contiguous:
-    the backward of the GroupNorm, ReLU or pooling that read the conv's
-    channels-last output keeps that layout. `grad_copies` counts the copies
+    `torch.nn.grad.conv3d_weight` on NCDHW views, db by summing dy; each in
+    the dtype of x, w and b, which `Conv3d` gives alike (bf16 in a bf16
+    step). In the UNet, dy arrives NDHWC-contiguous: the backward of the
+    GroupNorm, ReLU or pooling that read the conv's channels-last output
+    keeps that layout. `grad_copies` counts the copies
     made when it does not."""
 
     # dy layout copies made in backward since the last reset
@@ -262,11 +264,14 @@ class Conv3d(nn.Conv3d):
         if not x_cl.is_contiguous():
             x_cl = x_cl.contiguous()
             Conv3d.input_copies += 1
-        w = self.weight.permute(2, 3, 4, 1, 0)
+        # the weights in x's dtype: in a bf16 step the conv's autograd sees
+        # bf16 w and b, and the f32 parameters' gradients come back through
+        # the cast's own autograd
+        w, b = cast_to(self.weight, x).permute(2, 3, 4, 1, 0), cast_to(self.bias, x)
         if _force_plain:
-            y = conv3d_fwd_reference(x_cl, w, self.bias)
+            y = conv3d_fwd_reference(x_cl, w, b)
         elif torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, self.weight, self.bias)):
-            y = Conv3dFunction.apply(x_cl, w, self.bias)
+            y = Conv3dFunction.apply(x_cl, w, b)
         else:
-            y = conv3d_fwd(x_cl, w, self.bias)
+            y = conv3d_fwd(x_cl, w, b)
         return y.permute(0, 4, 1, 2, 3)

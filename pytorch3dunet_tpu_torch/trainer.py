@@ -12,16 +12,25 @@ On CUDA every 3x3x3 conv of the step runs on the hand-written kernels
 (ops/conv3d.py): the forward on K2 (on K1 for F >= 64 under
 P3DUNET_TAPFOLD=1), the input gradient on K3.
 
+With `loaders.device_augment: true` the movable transforms of the train
+pipeline and its label engineering leave the host loaders
+(`ops.augment.split_device_transforms`) and run on each uploaded train batch
+before the forward (`ops.augment.DeviceAugmenter`), drawn from two generators
+seeded from `manual_seed`: scalars from a CPU one, fields from one on the
+device. A resumed run starts them afresh. With `model.dtype: bfloat16` the
+model computes in bf16 (models/unet.py) while the parameters, their gradients,
+Adam's moments and the checkpoints stay float32; validation runs the same
+bf16 model.
+
 Not ported yet, and refused when a config asks for them: gradient
 accumulation, EMA weights, `resume: auto`, profiler traces and parameter
-histograms (ROADMAP Queue 1, "Trainer breadth"), spatial sharding
-("Parallelism"), and a `model.dtype: bfloat16` model ("Device augmentation and
-bf16 training": every config that trains in bf16 also augments on the device).
-TensorBoard is "Trainer breadth" too: scalars go to the log. Checkpoints are
-written synchronously, so `async_checkpoint` and `async_steps` change nothing
-but timing and are only logged.
+histograms (ROADMAP Queue 1, "Trainer breadth") and spatial sharding
+("Parallelism"). TensorBoard is "Trainer breadth" too: scalars go to the log.
+Checkpoints are written synchronously, so `async_checkpoint` and `async_steps`
+change nothing but timing and are only logged.
 """
 
+import copy
 import os
 from datetime import datetime
 
@@ -29,12 +38,13 @@ import numpy as np
 import torch
 
 from pytorch3dunet_tpu_torch.metrics import get_evaluation_metric
-from pytorch3dunet_tpu_torch.utils.misc import (ITEM_AUGMENT, ITEM_PARALLELISM, ITEM_TRAINER, RunningAverage,
-                                                get_logger, not_ported, roadmap)
+from pytorch3dunet_tpu_torch.utils.misc import (ITEM_PARALLELISM, ITEM_TRAINER, RunningAverage, get_logger,
+                                                not_ported, roadmap)
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
-from pytorch3dunet_tpu_torch.models.unet import compute_dtype, get_model
+from pytorch3dunet_tpu_torch.models.unet import get_model
+from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter, split_device_transforms
 from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer
 
@@ -44,11 +54,12 @@ logger = get_logger("UNetTrainer")
 def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
     """Builds a UNetTrainer from a full config dict. `loaders` ({'train': ...,
     'val': ...}, each an iterable of (raw, target) NCDHW numpy batches) replaces
-    the HDF5 loaders of config['loaders'].
+    the HDF5 loaders of config['loaders']; with `device_augment` the train
+    batches must then be what the stripped host pipeline yields.
 
     With `manual_seed`, torch's global RNG is seeded before the model is built
     (its weight init) and an explicit generator seeded from it draws the
-    train loader's shuffle seed."""
+    train loader's shuffle seed, then the device augmentation's seed."""
     seed = config.get("manual_seed", None)
     generator = torch.Generator()
     if seed is not None:
@@ -59,14 +70,24 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
 
     device = resolve_device(config.get("device", None))
     logger.info(f"Using device: {device}")
-    if compute_dtype(config["model"].get("dtype")) is not None:
-        raise not_ported(f"training with model.dtype={config['model']['dtype']!r}", ITEM_AUGMENT)
     model = get_model(config["model"]).to(device)
 
     loss_criterion = get_loss_criterion(config)
     eval_criterion = get_evaluation_metric(config)
+    # the spec comes from the config (a copy: the caller's dict stays whole),
+    # before the loaders are built from what it leaves on the host
+    if "loaders" in config:
+        config = dict(config, loaders=copy.deepcopy(config["loaders"]))
+    spec = split_device_transforms(config.get("loaders", {}))
     if loaders is None:
         loaders = get_train_loaders(config, seed=int(torch.randint(0, 2**31 - 1, (), generator=generator)))
+    augment = {}
+    if spec is not None:
+        post = spec["label_post"]
+        logger.info(f"Device augmentation: {len(spec['paired'])} paired + {len(spec['raw_only'])} raw-only "
+                    "transforms moved on-device" + (f" + label engineering ({post['name']})" if post else ""))
+        augment = {"device_augmenter": DeviceAugmenter(spec),
+                   "augment_seed": int(torch.randint(0, 2**31 - 2, (), generator=generator))}
     optimizer = create_optimizer(config["optimizer"], model)
     lr_scheduler = create_lr_scheduler(config.get("lr_scheduler", None), optimizer)
 
@@ -75,7 +96,7 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
         logger.info(f"trainer.tensorboard_formatter: TensorBoard is not ported yet ({roadmap(ITEM_TRAINER)}); "
                     "scalars go to the log")
     return UNetTrainer(model=model, optimizer=optimizer, lr_scheduler=lr_scheduler, loss_criterion=loss_criterion,
-                       eval_criterion=eval_criterion, loaders=loaders, device=device, **trainer_config)
+                       eval_criterion=eval_criterion, loaders=loaders, device=device, **augment, **trainer_config)
 
 
 def _refuse_unported(grad_accum_steps, ema_decay, resume, profile_dir, log_params, spatial_sharding):
@@ -103,7 +124,7 @@ class UNetTrainer:
                  validate_iters=None, num_iterations=1, num_epoch=0, eval_score_higher_is_better=True,
                  skip_train_validation=False, resume=None, pre_trained=None, max_val_images=100, device=None,
                  profile_dir=None, log_params=False, spatial_sharding=False, async_steps=8, grad_accum_steps=1,
-                 ema_decay=None, async_checkpoint=True):
+                 ema_decay=None, async_checkpoint=True, device_augmenter=None, augment_seed=None):
         _refuse_unported(grad_accum_steps, ema_decay, resume, profile_dir, log_params, spatial_sharding)
         logger.info(f"trainer.async_checkpoint={async_checkpoint}, async_steps={async_steps}: timing only; "
                     f"the port saves synchronously and reads every step's loss; "
@@ -125,6 +146,15 @@ class UNetTrainer:
         self.device = resolve_device(device)
         self.num_iterations = num_iterations
         self.num_epochs = num_epoch
+        self.device_augmenter = device_augmenter
+        if device_augmenter is not None:
+            # (host generator of the scalar draws, device generator of the fields)
+            self.augment_generators = (torch.Generator(), torch.Generator(device=self.device))
+            for i, gen in enumerate(self.augment_generators):
+                if augment_seed is None:
+                    gen.seed()
+                else:
+                    gen.manual_seed(augment_seed + i)
 
         logger.info(f"eval_score_higher_is_better: {eval_score_higher_is_better}")
         self.best_eval_score = float("-inf") if eval_score_higher_is_better else float("+inf")
@@ -172,9 +202,18 @@ class UNetTrainer:
             self._save_checkpoint(is_best=False)
             raise
 
-    def _to_device(self, raw, target):
-        return (torch.as_tensor(np.asarray(raw)).to(self.device),
-                torch.as_tensor(np.asarray(target)).to(self.device))
+    def _prepare_batch(self, raw, target, augment: bool = False):
+        """An NCDHW loader batch on the device. A train batch (`augment`) goes
+        through the device augmenter, a target without a channel axis with one
+        added for it and taken away after (JAX trainer.py:440-462)."""
+        inp = torch.as_tensor(np.asarray(raw)).to(self.device)
+        target = torch.as_tensor(np.asarray(target)).to(self.device)
+        if augment and self.device_augmenter is not None:
+            has_channel = target.ndim == inp.ndim
+            inp, target = self.device_augmenter(inp, target if has_channel else target[:, None],
+                                                self.augment_generators)
+            target = target if has_channel else target[:, 0]
+        return inp, target
 
     def train(self):
         """Trains for one epoch; returns True when training should stop now."""
@@ -186,10 +225,10 @@ class UNetTrainer:
             # epoch-keyed shuffle: a resumed run replays this epoch's batch order
             train_loader.set_epoch(self.num_epochs)
 
-        for raw, target_host in train_loader:
+        for raw, target in train_loader:
             logger.info(f"Training iteration [{self.num_iterations}/{self.max_num_iterations}]. "
                         f"Epoch [{self.num_epochs}/{self.max_num_epochs - 1}]")
-            inp, target = self._to_device(raw, target_host)
+            inp, target = self._prepare_batch(raw, target, augment=True)
             probs, logits = self.model(inp)
             loss = self.loss_criterion(logits, target)
             self.optimizer.zero_grad(set_to_none=True)
@@ -207,7 +246,9 @@ class UNetTrainer:
 
             if self.num_iterations % self.log_after_iters == 0:
                 if not self.skip_train_validation:
-                    score = self.eval_criterion(probs.detach().cpu().numpy(), np.asarray(target_host))
+                    # the target the network saw: after device augmentation
+                    # the host batch is the one before it
+                    score = self.eval_criterion(probs.detach().cpu().numpy(), target.cpu().numpy())
                     train_eval_scores.update(float(score), batch_size)
                 logger.info(f"Training stats. Loss: {train_losses.avg}. Evaluation score: {train_eval_scores.avg}")
                 self._log_stats("train", train_losses.avg, train_eval_scores.avg)
@@ -236,7 +277,7 @@ class UNetTrainer:
         try:
             with torch.no_grad():
                 for i, (raw, target_host) in enumerate(self.loaders["val"]):
-                    inp, target = self._to_device(raw, target_host)
+                    inp, target = self._prepare_batch(raw, target_host)
                     probs, logits = self.model(inp)
                     batch_size = inp.shape[0]
                     val_losses.update(self.loss_criterion(logits, target).item(), batch_size)

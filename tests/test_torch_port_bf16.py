@@ -29,7 +29,6 @@ import torch.nn.functional as F
 from pytorch3dunet_tpu.models import get_model as jax_get_model
 from pytorch3dunet_tpu_torch.models.unet import compute_dtype, get_model
 from pytorch3dunet_tpu_torch.ops import conv3d
-from pytorch3dunet_tpu_torch.trainer import create_trainer
 from pytorch3dunet_tpu_torch.utils.weights import state_dict_from_jax
 
 # max |port - JAX| of the bf16 probabilities
@@ -145,11 +144,3 @@ def test_bf16_layers_compute_in_bf16_with_f32_norms():
     assert seen == {name: (torch.bfloat16, torch.bfloat16) for name in
                     ("Conv3d", "GroupNorm", "ChannelSELayer3D", "SpatialSELayer3D", "Upsample")}
 
-
-def test_trainer_refuses_a_bf16_model(tmp_path):
-    config = {"device": "cpu", "model": {"name": "UNet3D", "in_channels": 1, "out_channels": 1, "f_maps": 8,
-                                         "num_levels": 2, "dtype": "bfloat16"},
-              "loss": {"name": "BCEWithLogitsLoss"}, "optimizer": {"learning_rate": 1e-3},
-              "trainer": {"checkpoint_dir": str(tmp_path), "max_num_epochs": 1, "max_num_iterations": 1}}
-    with pytest.raises(NotImplementedError, match="Device augmentation and bf16 training"):
-        create_trainer(config, loaders={"train": [], "val": []})

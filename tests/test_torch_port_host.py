@@ -358,7 +358,7 @@ def _jax_package_names(path: Path) -> list[str]:
 
 def test_port_sources_name_no_module_of_the_jax_package():
     sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(sources) > 20
+    assert len(sources) > 20 and PORT / "ops" / "augment.py" in sources
     assert [hit for path in sources for hit in _jax_package_names(path)] == []
 
 
@@ -371,7 +371,7 @@ def test_refusals_name_live_roadmap_items():
     queue1 = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
     titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", queue1, flags=re.M))
     named = {value for key, value in vars(misc).items() if key.startswith("ITEM_")}
-    assert len(named) == 6 and named <= titles, named - titles
+    assert len(named) == 5 and named <= titles, named - titles
     numbered = [f"{path.name}:{n}" for path in sorted(PORT.rglob("*.py"))
                 for n, line in enumerate(path.read_text().splitlines(), 1) if re.search(r"\bitem \d", line)]
     assert numbered == []
@@ -389,7 +389,7 @@ def test_port_and_chip_smoke_imports_load_nothing_of_the_jax_package():
     smoke = ast.parse((REPO / "chip_smoke.py").read_text())
     smoke_imports = sorted({node.module for node in ast.walk(smoke)
                             if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("pytorch3dunet")})
-    assert "pytorch3dunet_tpu_torch.ops.conv3d" in smoke_imports
+    assert {"pytorch3dunet_tpu_torch.ops.conv3d", "pytorch3dunet_tpu_torch.ops.augment"} <= set(smoke_imports)
     script = ("import importlib, pkgutil, sys\n"
               f"for name in {smoke_imports!r}:\n"
               "    importlib.import_module(name)\n"
