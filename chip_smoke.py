@@ -20,7 +20,7 @@ Phases, each fatal on failure:
      forward with the plain conv;
   5. predict times, with CUDA events: each conv shape (K2 beside its 3xTF32
      bound, its useful TFLOP/s and the MMAs it issues over the useful ones,
-     plain and cuDNN with TF32 off and on, K2 in bf16), one patch forward and
+     plain and cuDNN with TF32 off and on, K2 and cuDNN in bf16), one patch forward and
      its device time by kernel (torch.profiler), the whole prediction;
   6. conv backward: `Conv3dFunction`'s dx, dw, db against autograd through
      `F.conv3d` at one conv shape of each of levels 0-2 of the training patch;
@@ -33,7 +33,8 @@ Phases, each fatal on failure:
      plain conv (and, capped, against the plain f32 step);
   8. train times: K3 per input-gradient shape against one `F.conv3d` on dy
      and the flipped weights (the same function as K3) and cuDNN's
-     `conv3d_input` (TF32 off and on), cuDNN's weight gradient per conv shape
+     `conv3d_input` (TF32 off and on), K3 and that `F.conv3d` in bf16 beside
+     K3's bf16 bound, cuDNN's weight gradient per conv shape
      (TF32 off and on), one train step with the kernels against the plain conv
      (TF32 off and on), voxels/s and peak memory;
   9. profile: one train step's device time by kernel (torch.profiler) and the
@@ -58,9 +59,10 @@ forward on the im2col kernel (K1), and unset it after:
      Adam steps on the synthetic 80x170x170 batch and 1 validation; checks 18
      K3 launches per step and 14 K1 + 4 K2 per forward, the falling loss, and
      one step's gradients against a float64 step with the plain conv, beside
-     the plain conv's own float32 step, and against that f32 step;
+     the plain conv's own float32 step, and against that f32 step (the fit
+     and the check on cuDNN's deterministic algorithms);
  14. times: K1 per shape against K2 at the same shape and cuDNN (TF32 off and
-     on), the patch forward, predict_array, a train step with peak memory, and
+     on; K1 and cuDNN in bf16), the patch forward, predict_array, a train step with peak memory, and
      one forward's device time by kernel (torch.profiler).
 Phases 15-17 drive the device sweep (`DeviceSlidingWindowPredictor.predict_array`:
 one upload, the patch loop, normalization and stitching on the card, one
@@ -102,15 +104,42 @@ raw; StandardLabelToBoundary on the device):
  20. ResidualUNet3D in bf16 under P3DUNET_TAPFOLD=1, the lightsheet-boundary
      `_tpu` train config: 2 augmented steps (14 bf16 K1 and 4 bf16 K2 a
      forward, 18 bf16 K3 a step), one step's grads as in 19(a), the step time.
+Phases 21-23 drive the multiclass and denoising recipes (configs mirrored as
+dicts: MULTICLASS_TPU, DENOISING_TPU):
+ 21. resources/3DUnet_multiclass_tpu/train_config.yaml at full width (UNet3D
+     f_maps 32 over 4 levels, 3 classes, bf16) on a standardized raw and an
+     int64 class map of 3 classes from phase 7's Voronoi cells, through the
+     config's device augmentation (flips, rot90, rotate, elastic order 3/0):
+     (a) one bf16 step's grads against the plain conv's (14 bf16 K2, 14 bf16
+     K3), CrossEntropyLoss against float64 on the same logits; (b)
+     `create_trainer` with 4 augmented steps and 1 validation: launches, the
+     MeanIoU device twin against the host MeanIoU on the validation's
+     probabilities, a checkpoint that loads into an f32 model; the step, the
+     augmented step and one validation batch with the twin and with the host
+     metric;
+ 22. resources/3DUnet_denoising_tpu/train_config_regression.yaml (UNet3D
+     f_maps 16 over 5 levels, bf16, 128^3): K2 against its plain version at
+     its 18 forward shapes and K3 at its 18 input-gradient shapes in f32 and
+     bf16 (F = 8, dy with 8 channels and 256 channels at 8^3 are new), then
+     one bf16 step's grads against the plain conv's and 4 augmented steps
+     (flips and rot90; its RandomRotate stays on the host) and 1 validation
+     with the PSNR twin through `create_trainer` (18 bf16 K2 a forward, 18
+     bf16 K3 a step); the step time, peak memory and profile;
+ 23. resources/3DUnet_multiclass/test_config.yaml in f32 with phase 21's
+     weights: the device sweep on phase 4's volume and grid (each patch
+     standardized), its segmentation against the argmax of its
+     probabilities, `predictor.evaluate` (mean IoU) against a numpy mean IoU
+     computed here on a class map of the volume, 56 f32 K2, the evaluation's
+     time beside the sweep's.
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
 3.35 TB/s and FLOPs at the peak rate of the arithmetic the kernel issues,
 3xTF32 MMAs at 495 TFLOP/s (three products a MAC) for the three tensor-core
 kernels K1, K2 and K3, which also carry the f32 FFMA figure at 67 TFLOP/s as
-`bound_ffma_ms` and their ptxas registers, spills and shared memory; for K1
-and K2 also the bf16 time beside the bf16 bound at 989 TFLOP/s, for K2 the
-MMAs issued over the useful ones); the last line is
+`bound_ffma_ms` and their ptxas registers, spills and shared memory; for all
+three also the bf16 time beside the bf16 bound at 989 TFLOP/s and one cuDNN
+call in bf16, for K2 the MMAs issued over the useful ones); the last line is
 {"ok": true, "device": {...}}.
 
 Needs torch, numpy and scipy; not jax, h5py or yaml, and nothing of the JAX package.
@@ -224,6 +253,45 @@ AUG_RAW_TOL, AUG_LABEL_SHARE = 1e-4, 1e-5
 # a ceiling (both are bf16-noisy; at the CPU tests' width the bf16 step sits
 # 0.065 from the f32 step by this measure)
 BF16_STEP_VS_PLAIN_TOL = 0.1
+# resources/3DUnet_multiclass_tpu/train_config.yaml: the model (f_maps
+# [32, 64, 128, 256] is f_maps 32 over 4 levels), loss, optimizer, metric,
+# scheduler and the loaders section that split_device_transforms reads
+MULTICLASS_MODEL = {"name": "UNet3D", "in_channels": 1, "out_channels": 3, "layer_order": "gcr",
+                    "f_maps": [32, 64, 128, 256], "num_groups": 8, "final_sigmoid": False, "is_segmentation": True}
+MULTICLASS_ROTATE = {"name": "RandomRotate", "axes": [[2, 1]], "angle_spectrum": 30, "mode": "reflect"}
+MULTICLASS_TPU = {
+    "model": {**MULTICLASS_MODEL, "dtype": "bfloat16"}, "loss": {"name": "CrossEntropyLoss"},
+    "optimizer": {"learning_rate": 0.0002, "weight_decay": 1.0e-05}, "eval_metric": {"name": "MeanIoU"},
+    "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "max", "factor": 0.2, "patience": 8},
+    "trainer": {"eval_score_higher_is_better": True},
+    "loaders": {"device_augment": True, "train": {"transformer": {
+        "raw": [{"name": "Standardize"}, {"name": "RandomFlip"}, {"name": "RandomRotate90"}, MULTICLASS_ROTATE,
+                {"name": "ElasticDeformation", "spline_order": 3}, {"name": "ToTensor", "expand_dims": True}],
+        "label": [{"name": "RandomFlip"}, {"name": "RandomRotate90"}, MULTICLASS_ROTATE,
+                  {"name": "ElasticDeformation", "spline_order": 0},
+                  {"name": "ToTensor", "expand_dims": False, "dtype": "int64"}]}}}}
+# resources/3DUnet_denoising_tpu/train_config_regression.yaml, the same sections
+# (f_maps [16, 32, 64, 128, 256]: f_maps 16 over 5 levels, no final activation)
+DENOISING_MODEL = {"name": "UNet3D", "in_channels": 1, "out_channels": 1, "layer_order": "gcr",
+                   "f_maps": [16, 32, 64, 128, 256], "num_groups": 8, "is_segmentation": False}
+DENOISING_TPU = {
+    "model": {**DENOISING_MODEL, "dtype": "bfloat16"}, "loss": {"name": "SmoothL1Loss", "ignore_index": None},
+    "optimizer": {"learning_rate": 0.0002, "weight_decay": 1.0e-05},
+    "eval_metric": {"name": "PSNR", "ignore_index": None},
+    "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "max", "factor": 0.1, "patience": 10},
+    "trainer": {"eval_score_higher_is_better": True},
+    "loaders": {"device_augment": True, "train": {"transformer": {
+        "raw": [{"name": "Normalize"}, {"name": "RandomFlip"}, {"name": "RandomRotate90"}, MULTICLASS_ROTATE,
+                {"name": "ToTensor", "expand_dims": True}],
+        "label": [{"name": "Normalize"}, {"name": "RandomFlip"}, {"name": "RandomRotate90"}, MULTICLASS_ROTATE,
+                  {"name": "ToTensor", "expand_dims": True}]}}}}
+DENOISING_PATCH = (128, 128, 128)
+# phases 21-22 take fewer steps than phase 19 to keep the run short; their widths stay full
+RECIPE_STEPS = 4
+# a CE value in f32 against float64 on the same logits, relative
+CE_TOL = 1e-5
+# the MeanIoU twin against the host MeanIoU on the same probabilities and target
+TWIN_TOL = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
 # bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -274,6 +342,23 @@ def launches_by_dtype():
     from pytorch3dunet_tpu_torch.ops import conv3d
 
     return {name: dict(counts) for name, counts in conv3d.launches_by_dtype.items()}
+
+
+def count_launches(launches, path, fn):
+    """fn() with the launch counts set to 0 just before it; its launches by
+    kernel and dtype go to launches[path]."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[path] = launches_by_dtype()
+    return out
+
+
+def expect_launches(launches, path, k2=(0, 0), k3=(0, 0), k1=(0, 0)):
+    """Fails unless `path` launched K2, K3 and K1 (f32, bf16) times as given."""
+    want = {"conv3d_fwd": dict(zip(("f32", "bf16"), k2)), "conv3d_packw": dict(zip(("f32", "bf16"), k3)),
+            "conv3d_im2col": dict(zip(("f32", "bf16"), k1))}
+    check(launches[path] == want, f"{path} launched {launches[path]}, expected {want}")
 
 
 def conv_inputs(shape, c_out, dtype, bias, gen, device):
@@ -522,7 +607,14 @@ def residual_unet_phases(device, gen, volume, batches):
         check(finite and err <= FORWARD_TOL, f"ResidualUNetSE3D forward: finite {finite}, max|d| {err}")
         del se_model, se_probs, se_plain
 
-        # 13. ResidualUNet3D train path at full width
+        # 13. ResidualUNet3D train path at full width. cuDNN's default
+        # algorithms for this model's f32 backward are not deterministic (the
+        # plain step differed from itself by up to 1.3e-3 of a tensor's max|g|
+        # between two calls, and the per-tensor margin below moved with it from
+        # run to run, once below 0): the fit and the gradient check run on
+        # deterministic algorithms, so that the margin measures the kernels, not
+        # one draw of the order of cuDNN's reductions
+        torch.backends.cudnn.deterministic = True
         train_batch, val_batch = batches
         losses = []
         with tempfile.TemporaryDirectory() as checkpoint_dir:
@@ -574,6 +666,7 @@ def residual_unet_phases(device, gen, volume, batches):
             grads_plain = step_grads(train_model, torch.float32)
             grads_plain_again = step_grads(train_model, torch.float32)
             grads64 = step_grads(copy.deepcopy(train_model).double(), torch.float64)
+        torch.backends.cudnn.deterministic = False
 
         def rel(a, b):
             return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
@@ -609,6 +702,7 @@ def residual_unet_phases(device, gen, volume, batches):
                        "library_tf32_ms": with_tf32(lambda: timed_ms(lambda: library_conv(x, w, b)))}
                 xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
                 row["k1_bf16_ms"] = timed_ms(lambda: conv3d_fwd(xb, wb, bb, variant="im2col"))
+                row["library_bf16_ms"] = timed_ms(lambda: library_conv(xb, wb, bb))
                 row["bound_ms"] = tc_bound(shape, f)[0]
                 row["bound_ffma_ms"] = conv_bound(shape, f)[0]
                 row["bound_tc_bf16_ms"] = tc_bound(shape, f, dtype=torch.bfloat16)[0]
@@ -618,7 +712,7 @@ def residual_unet_phases(device, gen, volume, batches):
                     f"TFLOP/s, 3xTF32 bound {row['bound_ms']:.3f}, FFMA {row['bound_ffma_ms']:.3f}) | K2 "
                     f"{row['k2_ms']:.3f} | cuDNN F.conv3d {row['library_ms']:.3f}, TF32 {row['library_tf32_ms']:.3f} | "
                     f"plain {row['plain_ms']:.3f}, TF32 {row['plain_tf32_ms']:.3f} | K1 bf16 {row['k1_bf16_ms']:.3f} "
-                    f"ms (bf16 bound {row['bound_tc_bf16_ms']:.3f})")
+                    f"ms (bf16 bound {row['bound_tc_bf16_ms']:.3f}, cuDNN bf16 {row['library_bf16_ms']:.3f})")
                 del x, w, b, xb, wb, bb
             sums = {key: sum(r[key] for r in k1_times) for key in k1_times[0] if key.endswith("_ms")}
             tflop = sum(2 * 27 * np.prod(s) * f for _, s, f in k1_shapes) / 1e12
@@ -626,7 +720,7 @@ def residual_unet_phases(device, gen, volume, batches):
                 f"3xTF32 bound {sums['bound_ms']:.2f}, FFMA {sums['bound_ffma_ms']:.2f} | K2 {sums['k2_ms']:.2f} | cuDNN "
                 f"{sums['library_ms']:.2f}, TF32 {sums['library_tf32_ms']:.2f} | plain {sums['plain_ms']:.2f}, TF32 "
                 f"{sums['plain_tf32_ms']:.2f} | K1 bf16 {sums['k1_bf16_ms']:.2f} ms (bf16 bound "
-                f"{sums['bound_tc_bf16_ms']:.2f})")
+                f"{sums['bound_tc_bf16_ms']:.2f}, cuDNN bf16 {sums['library_bf16_ms']:.2f})")
 
             torch.cuda.reset_peak_memory_stats()
             fwd_ms = timed_ms(lambda: model(x0))
@@ -673,6 +767,7 @@ def residual_unet_phases(device, gen, volume, batches):
         torch.cuda.empty_cache()
     finally:
         os.environ.pop("P3DUNET_TAPFOLD", None)
+        torch.backends.cudnn.deterministic = False
 
     return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "predict_launches": predict_launches,
             "train_launches": train_launches, "predict_out": out,
@@ -680,7 +775,8 @@ def residual_unet_phases(device, gen, volume, batches):
             "k1_library_ms": sums["library_ms"], "k2_same_ms": sums["k2_ms"], "k1_count": len(k1_times),
             "k1_bound": summed_bound([(shape, f, True) for _, shape, f in k1_shapes], tc_bound),
             "k1_bound_ffma": summed_bound([(shape, f, True) for _, shape, f in k1_shapes]),
-            "k1_bf16_ms": sums["k1_bf16_ms"], "k1_bound_tc_bf16_ms": sums["bound_tc_bf16_ms"]}
+            "k1_bf16_ms": sums["k1_bf16_ms"], "k1_bound_tc_bf16_ms": sums["bound_tc_bf16_ms"],
+            "k1_library_bf16_ms": sums["library_bf16_ms"]}
 
 
 def device_sweep_phases(device, volume, host, res_host_out):
@@ -720,16 +816,10 @@ def device_sweep_phases(device, volume, host, res_host_out):
         return lambda: predictor.predict_array(volume, PATCH, stride, HALO, normalize=normalize, stats=stats)
 
     def counted(path, fn):
-        reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        launches[path] = launches_by_dtype()
-        return out
+        return count_launches(launches, path, fn)
 
     def expect(path, k2=(0, 0), k1=(0, 0)):
-        want = {"conv3d_fwd": dict(zip(("f32", "bf16"), k2)), "conv3d_packw": {"f32": 0, "bf16": 0},
-                "conv3d_im2col": dict(zip(("f32", "bf16"), k1))}
-        check(launches[path] == want, f"{path} launched {launches[path]}, expected {want}")
+        expect_launches(launches, path, k2=k2, k1=k1)
 
     def probs_ok(tag, out):
         ok = out.shape == (1, *VOLUME) and np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
@@ -1005,18 +1095,110 @@ def augment_phase(device, batch):
         f"peak memory above its inputs {peak_gib:.2f} GiB")
 
 
+def bf16_grads_vs_plain(config, inp, tgt, tag, phase, launches):
+    """One bf16 step's grads with the kernels (its launches counted as
+    f"{tag}_step") against the same step with the plain conv (a ceiling) and
+    against a float64 plain step (printed). Returns the model, the loss and
+    the step's loss value."""
+    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
+
+    torch.manual_seed(SEED)
+    model = get_model(config["model"])
+    randomize_group_norms(model, torch.Generator().manual_seed(SEED + 1))
+    model = model.to(inp.device).train()
+    criterion = get_loss_criterion(config)
+
+    def step_grads(m, x):
+        m.zero_grad(set_to_none=True)
+        # a class map stays integral; a float target takes the input's dtype
+        loss = criterion(m(x)[1], tgt.to(x.dtype) if tgt.is_floating_point() else tgt)
+        loss.backward()
+        return {name: p.grad.detach().double() for name, p in m.named_parameters()}, loss
+
+    grads, loss = count_launches(launches, f"{tag}_step", lambda: step_grads(model, inp))
+    check(loss.dtype == torch.float32 and all(p.grad.dtype == torch.float32 for p in model.parameters()),
+          f"{tag}: the bf16 step's loss or grads are not float32")
+    with plain_conv():
+        grads_plain, _ = step_grads(model, inp)
+        m64 = get_model({**config["model"], "dtype": None})
+        m64.load_state_dict(model.state_dict())
+        grads64, _ = step_grads(m64.to(inp.device).double().train(), inp.double())
+    g_max = max(g.abs().max().item() for g in grads_plain.values())
+    vs_plain = max(((g - grads_plain[k]).abs().max().item() / g_max, k) for k, g in grads.items())
+    g64_max = max(g.abs().max().item() for g in grads64.values())
+    vs64 = max(((g - grads64[k]).abs().max().item() / g64_max, k) for k, g in grads.items())
+    plain64 = max(((g - grads64[k]).abs().max().item() / g64_max, k) for k, g in grads_plain.items())
+    per_tensor = max(((g - grads_plain[k]).abs().max().item() / max(grads_plain[k].abs().max().item(), 1e-30), k)
+                     for k, g in grads.items())
+    log(f"[{phase}] one bf16 step, {len(grads)} tensors: kernels vs plain conv (bf16) worst max|d| / max|g| "
+        f"{vs_plain[0]:.3e} ({vs_plain[1]}, ceiling {BF16_STEP_VS_PLAIN_TOL}); per tensor / its own max|g| "
+        f"worst {per_tensor[0]:.3e} ({per_tensor[1]}); from a float64 plain step: kernels {vs64[0]:.3e} "
+        f"({vs64[1]}), plain bf16 {plain64[0]:.3e} ({plain64[1]}); loss {loss.item():.5f}")
+    check(all(math.isfinite(g.abs().max().item()) for g in grads.values()), f"{tag}: bf16 grads not finite")
+    check(vs_plain[0] <= BF16_STEP_VS_PLAIN_TOL, f"{tag}: bf16 step grads differ from the plain conv's by "
+                                                 f"{vs_plain[0]} at {vs_plain[1]}")
+    del grads, grads_plain, grads64, m64
+    return model, criterion
+
+
+def fit_with_augmentation(config, host_batch, val_batch, n_steps, validate_after, tag, phase, launches,
+                          prepare=None):
+    """The trainer's own fit with the device augmentation on: `n_steps`
+    steps from the host batch, a validation every `validate_after`, its
+    launches counted as `tag`; `prepare(trainer)` runs before the fit.
+    Returns the trainer."""
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+    from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    losses = []
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        config = copy.deepcopy(config)
+        higher_is_better = config.get("trainer", {}).get("eval_score_higher_is_better", False)
+        config["trainer"] = {"eval_score_higher_is_better": higher_is_better, "checkpoint_dir": checkpoint_dir,
+                             "validate_after_iters": validate_after, "log_after_iters": 10**9, "max_num_epochs": 10**9,
+                             "max_num_iterations": n_steps - 1}
+        trainer = create_trainer(config, loaders={"train": [host_batch], "val": [val_batch]})
+        check(isinstance(trainer.device_augmenter, DeviceAugmenter), f"{tag}: no device augmenter")
+        criterion = trainer.loss_criterion
+
+        def recording_criterion(logits, target):
+            loss = criterion(logits, target)
+            if torch.is_grad_enabled():
+                losses.append(loss.item())
+            return loss
+
+        trainer.loss_criterion = recording_criterion
+        if prepare is not None:
+            prepare(trainer)
+        start = time.perf_counter()
+        count_launches(launches, tag, trainer.fit)
+        fit_s = time.perf_counter() - start
+        trainer.loss_criterion = criterion
+        ckpt = None
+        if n_steps >= validate_after:
+            ckpt_path = Path(checkpoint_dir) / "last_checkpoint.pytorch"
+            state = load_checkpoint(ckpt_path)
+            check(all(v.dtype == torch.float32 for v in state["model_state_dict"].values()
+                      if v.is_floating_point()), f"{tag}: the checkpoint is not float32")
+            get_model({**config["model"], "dtype": None}).load_state_dict(state["model_state_dict"], strict=True)
+            ckpt = f"{ckpt_path.name} loads strictly into an f32 model"
+    log(f"[{phase}] fit with device augmentation: {n_steps} steps of {tuple(host_batch[0].shape[2:])} in "
+        f"{fit_s:.2f} s; launches {launches[tag]}; losses {', '.join(f'{v:.5f}' for v in losses)}"
+        + (f"; {ckpt}" if ckpt else ""))
+    check(len(losses) == n_steps and all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+    return trainer
+
+
 def bf16_train_phases(device, batches, f32_step_ms):
     """Phases 19-20: bf16 training of the confocal (UNet3D) and
     lightsheet-boundary (ResidualUNet3D, P3DUNET_TAPFOLD=1) `_tpu` train
     configs with their device augmentation. `batches` is phase 7's
     (train, val) pair, `f32_step_ms` phase 8's f32 step. Returns the launches
     of each path by kernel and dtype."""
-    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
-    from pytorch3dunet_tpu_torch.models.unet import get_model
-    from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter
-    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
-    from pytorch3dunet_tpu_torch.trainer import create_trainer
-    from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint
     from pytorch3dunet_tpu_torch.utils.optim import create_optimizer
 
     (raw, target), val_batch = batches
@@ -1026,103 +1208,15 @@ def bf16_train_phases(device, batches, f32_step_ms):
     host_batch = (raw, np.ascontiguousarray(target[:, 1:]))
     launches = {}
 
-    def counted(path, fn):
-        reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        launches[path] = launches_by_dtype()
-        return out
-
     def expect(path, k2=(0, 0), k3=(0, 0), k1=(0, 0)):
-        want = {"conv3d_fwd": dict(zip(("f32", "bf16"), k2)), "conv3d_packw": dict(zip(("f32", "bf16"), k3)),
-                "conv3d_im2col": dict(zip(("f32", "bf16"), k1))}
-        check(launches[path] == want, f"{path} launched {launches[path]}, expected {want}")
-
-    def rel(a, b):
-        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-
-    def grads_vs(config, tag, phase):
-        """One bf16 step's grads with the kernels against the plain conv (a
-        ceiling) and against a float64 plain step (printed)."""
-        torch.manual_seed(SEED)
-        model = get_model(config["model"])
-        randomize_group_norms(model, torch.Generator().manual_seed(SEED + 1))
-        model = model.to(device).train()
-        criterion = get_loss_criterion(config)
-
-        def step_grads(m, x):
-            m.zero_grad(set_to_none=True)
-            loss = criterion(m(x)[1], tgt.to(x.dtype))
-            loss.backward()
-            return {name: p.grad.detach().double() for name, p in m.named_parameters()}, loss
-
-        grads, loss = counted(f"{tag}_step", lambda: step_grads(model, inp))
-        check(loss.dtype == torch.float32 and all(p.grad.dtype == torch.float32 for p in model.parameters()),
-              f"{tag}: the bf16 step's loss or grads are not float32")
-        with plain_conv():
-            grads_plain, _ = step_grads(model, inp)
-            m64 = get_model({**config["model"], "dtype": None})
-            m64.load_state_dict(model.state_dict())
-            grads64, _ = step_grads(m64.to(device).double().train(), inp.double())
-        g_max = max(g.abs().max().item() for g in grads_plain.values())
-        vs_plain = max(((g - grads_plain[k]).abs().max().item() / g_max, k) for k, g in grads.items())
-        g64_max = max(g.abs().max().item() for g in grads64.values())
-        vs64 = max(((g - grads64[k]).abs().max().item() / g64_max, k) for k, g in grads.items())
-        plain64 = max(((g - grads64[k]).abs().max().item() / g64_max, k) for k, g in grads_plain.items())
-        per_tensor = max((rel(g, grads_plain[k]), k) for k, g in grads.items())
-        log(f"[{phase}] one bf16 step, {len(grads)} tensors: kernels vs plain conv (bf16) worst max|d| / max|g| "
-            f"{vs_plain[0]:.3e} ({vs_plain[1]}, ceiling {BF16_STEP_VS_PLAIN_TOL}); per tensor / its own max|g| "
-            f"worst {per_tensor[0]:.3e} ({per_tensor[1]}); from a float64 plain step: kernels {vs64[0]:.3e} "
-            f"({vs64[1]}), plain bf16 {plain64[0]:.3e} ({plain64[1]}); loss {loss.item():.5f}")
-        check(all(math.isfinite(g.abs().max().item()) for g in grads.values()), f"{tag}: bf16 grads not finite")
-        check(vs_plain[0] <= BF16_STEP_VS_PLAIN_TOL, f"{tag}: bf16 step grads differ from the plain conv's by "
-                                                     f"{vs_plain[0]} at {vs_plain[1]}")
-        del grads, grads_plain, grads64, m64
-        return model, criterion
-
-    def fit(config, n_steps, validate_after, tag, phase):
-        """The trainer's own fit with the device augmentation on: `n_steps`
-        steps from the host batch, a validation every `validate_after`."""
-        losses, augment_ms = [], []
-        with tempfile.TemporaryDirectory() as checkpoint_dir:
-            config = copy.deepcopy(config)
-            config["trainer"] = {"eval_score_higher_is_better": False, "checkpoint_dir": checkpoint_dir,
-                                 "validate_after_iters": validate_after, "log_after_iters": 10**9,
-                                 "max_num_epochs": 10**9, "max_num_iterations": n_steps - 1}
-            trainer = create_trainer(config, loaders={"train": [host_batch], "val": [val_batch]})
-            check(isinstance(trainer.device_augmenter, DeviceAugmenter), f"{tag}: no device augmenter")
-            criterion = trainer.loss_criterion
-
-            def recording_criterion(logits, target):
-                loss = criterion(logits, target)
-                if torch.is_grad_enabled():
-                    losses.append(loss.item())
-                return loss
-
-            trainer.loss_criterion = recording_criterion
-            start = time.perf_counter()
-            counted(tag, trainer.fit)
-            fit_s = time.perf_counter() - start
-            trainer.loss_criterion = criterion
-            ckpt = None
-            if n_steps >= validate_after:
-                ckpt_path = Path(checkpoint_dir) / "last_checkpoint.pytorch"
-                state = load_checkpoint(ckpt_path)
-                check(all(v.dtype == torch.float32 for v in state["model_state_dict"].values()
-                          if v.is_floating_point()), f"{tag}: the checkpoint is not float32")
-                get_model({**config["model"], "dtype": None}).load_state_dict(state["model_state_dict"], strict=True)
-                ckpt = f"{ckpt_path.name} loads strictly into an f32 model"
-        log(f"[{phase}] fit with device augmentation: {n_steps} steps of {TRAIN_PATCH} in {fit_s:.2f} s; launches "
-            f"{launches[tag]}; losses {', '.join(f'{v:.5f}' for v in losses)}" + (f"; {ckpt}" if ckpt else ""))
-        check(len(losses) == n_steps and all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
-        return trainer
+        expect_launches(launches, path, k2, k3, k1)
 
     # 19. UNet3D, the confocal _tpu train config
     config = {"manual_seed": SEED, "device": "cuda", "model": {**MODEL, "dtype": "bfloat16"}, **TRAIN_SECTIONS,
               "loaders": copy.deepcopy(TPU_LOADERS)}
     n_conv = 14
     # (a) one bf16 step on the fixed batch, no augmentation
-    model, criterion = grads_vs(config, "train_bf16", "19 bf16 train")
+    model, criterion = bf16_grads_vs_plain(config, inp, tgt, "train_bf16", "19 bf16 train", launches)
     expect("train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
     optimizer = create_optimizer(config["optimizer"], model)
 
@@ -1143,7 +1237,8 @@ def bf16_train_phases(device, batches, f32_step_ms):
     check(losses[-1] < losses[0] and all(math.isfinite(v) for v in losses), f"bf16 loss did not fall: {losses}")
     check(f32_state, "bf16 training left a parameter or a moment outside float32")
     # (c) the trainer's own fit with augmentation: 6 steps and 1 validation
-    trainer = fit(config, TRAIN_STEPS, TRAIN_STEPS, "train_bf16_augmented", "19 bf16 train")
+    trainer = fit_with_augmentation(config, host_batch, val_batch, TRAIN_STEPS, TRAIN_STEPS, "train_bf16_augmented",
+                                    "19 bf16 train", launches)
     expect("train_bf16_augmented", k2=(0, n_conv * (TRAIN_STEPS + 1)), k3=(0, n_conv * TRAIN_STEPS))
     # times: the bf16 step, the augmented step and the augmenter's share
     augmenter, gens = trainer.device_augmenter, trainer.augment_generators
@@ -1175,10 +1270,12 @@ def bf16_train_phases(device, batches, f32_step_ms):
     try:
         config = {"manual_seed": SEED, "device": "cuda", "model": {**RES_MODEL, "dtype": "bfloat16"},
                   **TRAIN_SECTIONS, "lr_scheduler": dict(RES_LR_SCHEDULER), "loaders": copy.deepcopy(TPU_LOADERS)}
-        trainer = fit(config, 2, 10**9, "resunet_train_bf16_augmented", "20 resunet bf16 train")
+        trainer = fit_with_augmentation(config, host_batch, val_batch, 2, 10**9, "resunet_train_bf16_augmented",
+                                        "20 resunet bf16 train", launches)
         expect("resunet_train_bf16_augmented", k2=(0, 4 * 2), k1=(0, 14 * 2), k3=(0, 18 * 2))
         del trainer
-        model, criterion = grads_vs(config, "resunet_train_bf16", "20 resunet bf16 train")
+        model, criterion = bf16_grads_vs_plain(config, inp, tgt, "resunet_train_bf16", "20 resunet bf16 train",
+                                               launches)
         expect("resunet_train_bf16_step", k2=(0, 4), k1=(0, 14), k3=(0, 18))
         optimizer = create_optimizer(config["optimizer"], model)
         step_ms = timed_ms(train_step)
@@ -1188,6 +1285,220 @@ def bf16_train_phases(device, batches, f32_step_ms):
         torch.cuda.empty_cache()
     finally:
         os.environ.pop("P3DUNET_TAPFOLD", None)
+    return launches
+
+
+def recipe_phases(device, volume, batches):
+    """Phases 21-23: the multiclass and denoising `_tpu` train configs in bf16
+    with their device augmentation, then the multiclass prediction with its
+    mean IoU. `volume` is phase 4's, `batches` phase 7's (train, val) pair.
+    Returns the launches of each path by kernel and dtype."""
+    from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder
+    from pytorch3dunet_tpu_torch.metrics import PSNR, MeanIoU
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops import augment
+    from pytorch3dunet_tpu_torch.ops.conv3d import conv3d_fwd, conv3d_fwd_reference, conv3d_input_grad
+    from pytorch3dunet_tpu_torch.ops.conv3d import conv3d_input_grad_reference
+    from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor, evaluate
+    from pytorch3dunet_tpu_torch.utils.optim import create_optimizer
+
+    launches = {}
+    voxels = np.prod(TRAIN_PATCH)
+
+    def timed_step(model, criterion, optimizer, x, y):
+        def step():
+            optimizer.zero_grad(set_to_none=True)
+            criterion(model(x)[1], y).backward()
+            optimizer.step()
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed_ms(step)
+        return ms, torch.cuda.max_memory_allocated() / 2**30, step
+
+    # 21. multiclass_tpu: a class map of 3 classes from phase 7's Voronoi cells
+    # and a standardized raw that shows it, through the config's device augmentation
+    def multiclass_batch(batch, seed):
+        classes = (batch[1][:, 1] % 3).astype(np.int64)
+        raw = classes + 0.8 * np.random.RandomState(seed).randn(*classes.shape)
+        return ((raw - raw.mean()) / raw.std())[:, None].astype(np.float32), classes
+
+    (raw, classes), val_batch = (multiclass_batch(b, SEED + i) for i, b in enumerate(batches))
+    spec = augment.split_device_transforms(copy.deepcopy(MULTICLASS_TPU["loaders"]))
+    names = [e["raw"]["name"] for e in spec["paired"]]
+    check(names == ["RandomFlip", "RandomRotate90", "RandomRotate", "ElasticDeformation"] and not spec["raw_only"]
+          and spec["label_post"] is None and spec["paired"][3]["label"]["spline_order"] == 0,
+          f"the multiclass _tpu spec is {spec}")
+    config = {"manual_seed": SEED, "device": "cuda", **copy.deepcopy(MULTICLASS_TPU)}
+    inp, tgt = torch.from_numpy(raw).to(device), torch.from_numpy(classes).to(device)
+    n_conv = 14
+    # (a) one bf16 step on the fixed batch, no augmentation
+    model, criterion = bf16_grads_vs_plain(config, inp, tgt, "multiclass_train_bf16", "21 multiclass train",
+                                           launches)
+    expect_launches(launches, "multiclass_train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
+    with torch.no_grad():
+        logits = model(inp)[1]
+        ce, ce64 = criterion(logits, tgt).item(), criterion(logits.double(), tgt).item()
+    ce_err = abs(ce - ce64) / abs(ce64)
+    log(f"[21 multiclass train] the spec: paired {names}; CrossEntropyLoss on the bf16 step's f32 logits "
+        f"{ce:.7f} against float64 {ce64:.7f}: relative {ce_err:.2e} (tol {CE_TOL})")
+    check(logits.dtype == torch.float32 and ce_err <= CE_TOL, f"CE {ce} against float64 {ce64}")
+    del logits
+    # (b) the trainer's own fit: RECIPE_STEPS augmented steps and 1 validation
+    twin_calls = []
+
+    def record_twin(trainer):
+        twin = trainer.device_metric
+        check(type(trainer.eval_criterion) is MeanIoU and twin is not None, "the multiclass validation has no twin")
+        trainer.device_metric = lambda probs, target: twin_calls.append((probs, target, twin(probs, target))) or \
+            twin_calls[-1][2]
+        trainer.mean_iou_twin = twin
+
+    trainer = fit_with_augmentation(config, (raw, classes), val_batch, RECIPE_STEPS, RECIPE_STEPS,
+                                    "multiclass_train_bf16_augmented", "21 multiclass train", launches,
+                                    prepare=record_twin)
+    expect_launches(launches, "multiclass_train_bf16_augmented", k2=(0, n_conv * (RECIPE_STEPS + 1)),
+                    k3=(0, n_conv * RECIPE_STEPS))
+    check(len(twin_calls) == 1, f"the validation called the MeanIoU twin {len(twin_calls)} times")
+    probs_v, target_v, twin_score = twin_calls[0]
+    host_score = MeanIoU()(probs_v.cpu().numpy(), target_v.cpu().numpy())
+    twin_err = abs(twin_score.item() - host_score)
+    log(f"[21 multiclass train] validation: the MeanIoU twin {twin_score.item():.7f}, the host MeanIoU on the same "
+        f"probabilities {host_score:.7f}: |d| {twin_err:.2e} (tol {TWIN_TOL}); best {trainer.best_eval_score:.5f}")
+    check(twin_err <= TWIN_TOL, f"the MeanIoU twin differs from the host metric by {twin_err}")
+    multiclass_state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    # times: the step, the augmented step, one validation batch with the twin and with the host metric
+    optimizer = create_optimizer(config["optimizer"], model)
+    step_ms, peak_gib, step = timed_step(model, criterion, optimizer, inp, tgt)
+    augmenter, gens = trainer.device_augmenter, trainer.augment_generators
+
+    def augmented_step():
+        x, y = augmenter(inp, tgt[:, None], gens)
+        optimizer.zero_grad(set_to_none=True)
+        criterion(model(x)[1], y[:, 0]).backward()
+        optimizer.step()
+
+    augmented_ms = timed_ms(augmented_step)
+    eval_model, twin = trainer.model, trainer.mean_iou_twin
+    x_val, y_val = (torch.from_numpy(a).to(device) for a in val_batch)
+
+    def validation_batch(with_twin):
+        def run():
+            with torch.no_grad():
+                probs, logits = eval_model(x_val)
+                criterion(logits, y_val)
+                return twin(probs, y_val) if with_twin else MeanIoU()(probs.cpu().numpy(), val_batch[1])
+
+        return run
+
+    eval_model.eval()
+    twin_ms, host_ms = timed_ms(validation_batch(True)), timed_ms(validation_batch(False))
+    eval_model.train()
+    log(f"[21 multiclass train step] {TRAIN_PATCH} batch 1, CE, bf16: {step_ms:.2f} ms ({voxels / step_ms / 1e3:.3f} "
+        f"Mvoxel/s), peak {peak_gib:.2f} GiB | with the device augmentation {augmented_ms:.2f} ms | one validation "
+        f"batch: the MeanIoU twin {twin_ms:.2f} ms, the host MeanIoU (downloads 3 x {TRAIN_PATCH} f32) "
+        f"{host_ms:.2f} ms")
+    del step, model, optimizer, trainer, augmenter, eval_model, probs_v, target_v, twin_calls, inp, tgt, x_val, y_val
+    torch.cuda.empty_cache()
+
+    # 22. denoising_tpu: first its kernels at the 18 forward and 18 input-gradient shapes
+    torch.manual_seed(SEED)
+    shapes = path_conv_shapes(get_model(DENOISING_MODEL), DENOISING_PATCH)
+    dgrads = dgrad_shapes(get_model(DENOISING_MODEL), DENOISING_PATCH)
+    check((len(shapes), len(dgrads)) == (18, 18), f"denoising UNet3D: {len(shapes)} convs, {len(dgrads)} dgrads")
+    deepest = tuple(d // 2 ** (len(DENOISING_MODEL["f_maps"]) - 1) for d in DENOISING_PATCH)
+    new = {"F = 8": [name for name, _, f in shapes if f == 8],
+           f"256 channels at {deepest}": [name for name, shape, f in shapes if shape[1:4] == deepest and f == 256]
+           + [f"dgrad {name}" for name, shape, _ in dgrads if shape[1:] == (*deepest, 256)],
+           "dy with 8 channels": [f"dgrad {name}" for name, shape, _ in dgrads if shape[4] == 8]}
+    log(f"[22 denoising kernels] the shapes no earlier phase ran: {new}")
+    check(all(new.values()), f"the new shapes {new}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    errors_k2, failed = check_kernel("K2", conv3d_fwd, conv3d_fwd_reference,
+                                     [(name, shape, f, True) for name, shape, f in shapes], gen, device, phase=22)
+    check(not failed, f"K2 disagrees with the plain version at the denoising shapes: {failed}")
+    errors_k3, failed = check_kernel("K3", lambda dy, w, _: conv3d_input_grad(dy, w.transpose(3, 4)),
+                                     lambda dy, w, _: conv3d_input_grad_reference(dy, w.transpose(3, 4)),
+                                     [(f"dgrad {name}", shape, c, False) for name, shape, c in dgrads], gen, device,
+                                     phase=22)
+    check(not failed, f"K3 disagrees with the plain version at the denoising dgrad shapes: {failed}")
+
+    # then the step: a float target (the clean image) and its noisy raw, each
+    # scaled to [-1, 1] as the config's Normalize does
+    rs = np.random.RandomState(SEED + 22)
+    zz, yy, xx = np.meshgrid(*(np.linspace(0, 4 * np.pi, s, dtype=np.float32) for s in DENOISING_PATCH), indexing="ij")
+    clean = np.sin(zz) * np.cos(yy) + 0.5 * np.sin(xx + zz)
+
+    def normalize(a):
+        return (2 * (a - a.min()) / (a.max() - a.min()) - 1)[None, None].astype(np.float32)
+
+    d_batch, d_val = ((normalize(clean + 0.3 * rs.randn(*clean.shape)), normalize(clean)) for _ in range(2))
+    spec = augment.split_device_transforms(copy.deepcopy(DENOISING_TPU["loaders"]))
+    names = [e["raw"]["name"] for e in spec["paired"]]
+    # the label's Normalize is host engineering, so RandomRotate stays on the host (as in the JAX split)
+    check(names == ["RandomFlip", "RandomRotate90"] and not spec["raw_only"] and spec["label_post"] is None,
+          f"the denoising _tpu spec is {spec}")
+    config = {"manual_seed": SEED, "device": "cuda", **copy.deepcopy(DENOISING_TPU)}
+    inp, tgt = torch.from_numpy(d_batch[0]).to(device), torch.from_numpy(d_batch[1]).to(device)
+    n_conv = 18
+    model, criterion = bf16_grads_vs_plain(config, inp, tgt, "denoising_train_bf16", "22 denoising train", launches)
+    expect_launches(launches, "denoising_train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
+    used = []
+
+    def record_twin(trainer):
+        twin = trainer.device_metric
+        check(type(trainer.eval_criterion) is PSNR and twin is not None, "the denoising validation has no twin")
+        trainer.device_metric = lambda probs, target: used.append(twin(probs, target)) or used[-1]
+
+    trainer = fit_with_augmentation(config, d_batch, d_val, RECIPE_STEPS, RECIPE_STEPS,
+                                    "denoising_train_bf16_augmented", "22 denoising train", launches,
+                                    prepare=record_twin)
+    expect_launches(launches, "denoising_train_bf16_augmented", k2=(0, n_conv * (RECIPE_STEPS + 1)),
+                    k3=(0, n_conv * RECIPE_STEPS))
+    check(len(used) == 1 and math.isfinite(used[0].item()), f"the PSNR twin gave {used}")
+    log(f"[22 denoising train] spec: paired {names} (RandomRotate stays on the host); validation PSNR twin "
+        f"{used[0].item():.4f} dB")
+    optimizer = create_optimizer(config["optimizer"], model)
+    step_ms, peak_gib, step = timed_step(model, criterion, optimizer, inp, tgt)
+    d_voxels = np.prod(DENOISING_PATCH)
+    log(f"[22 denoising train step] {DENOISING_PATCH} batch 1, SmoothL1, bf16: {step_ms:.2f} ms "
+        f"({d_voxels / step_ms / 1e3:.3f} Mvoxel/s), peak {peak_gib:.2f} GiB")
+    profile_step(step, step_ms, top=10, tag="22 profile", what="one bf16 denoising train step")
+    del step, model, optimizer, trainer, inp, tgt
+    torch.cuda.empty_cache()
+
+    # 23. 3DUnet_multiclass/test_config.yaml in f32 with phase 21's weights: the
+    # device sweep on phase 4's grid (global_normalization false: each patch
+    # standardized), save_segmentation, mean IoU against a class map of the volume
+    model = get_model(MULTICLASS_MODEL)
+    model.load_state_dict(multiclass_state)
+    model = model.to(device).eval()
+    predictor = DeviceSlidingWindowPredictor(model, None, 3, device, save_segmentation=True,
+                                             performance_metric="mean_iou", gt_internal_path="label")
+    zz, yy, xx = np.meshgrid(*(np.linspace(0, 6 * np.pi, s, dtype=np.float32) for s in VOLUME), indexing="ij")
+    gt = np.digitize(np.sin(zz) * np.cos(yy) * np.sin(xx), [-1 / 3, 1 / 3]).astype(np.uint16)
+    del zz, yy, xx
+
+    def sweep():
+        return predictor.predict_array(volume, PATCH, STRIDE, HALO, normalize="standardize_patch", stats={})
+
+    probs = count_launches(launches, "multiclass_device_sweep", sweep)
+    n_patches = len(SliceBuilder._build_slices(np.broadcast_to(np.float32(0), VOLUME), PATCH, STRIDE))
+    expect_launches(launches, "multiclass_device_sweep", k2=(14 * n_patches, 0))
+    seg = predictor._to_segmentation(probs)
+    check(probs.shape == (3, *VOLUME) and np.isfinite(probs).all(), f"multiclass probabilities {probs.shape}")
+    check(np.array_equal(seg, torch.from_numpy(probs).argmax(0).numpy()), "segmentation != argmax of the sweep")
+    start = time.perf_counter()
+    ious = evaluate(seg, gt, predictor.performance_metric, predictor.out_channels)
+    eval_s = time.perf_counter() - start
+    want = [np.count_nonzero((seg == c) & (gt == c)) / np.count_nonzero((seg == c) | (gt == c)) for c in (1, 2)]
+    sweep_ms = timed_ms(sweep, runs=SWEEP_RUNS)
+    log(f"[23 multiclass predict] f32 sweep of {VOLUME}, {n_patches} patches: launches "
+        f"{launches['multiclass_device_sweep']}; classes {np.bincount(seg.ravel(), minlength=3).tolist()}; "
+        f"mean_iou per class {[float(v) for v in ious]} (numpy in this script {want}); the sweep {sweep_ms:.2f} ms, "
+        f"the evaluation {1e3 * eval_s:.2f} ms")
+    check(np.allclose(ious, want, rtol=0, atol=0), f"mean_iou {ious} against {want}")
+    del model, predictor, probs, seg
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1328,6 +1639,7 @@ def main():
             row["library_tf32_ms"] = with_tf32(lambda: timed_ms(lambda: library_conv(x, w, b)))
             xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
             row["kernel_bf16_ms"] = timed_ms(lambda: conv3d_fwd(xb, wb, bb))
+            row["library_bf16_ms"] = timed_ms(lambda: library_conv(xb, wb, bb))
             row["bound_ms"] = tc_bound(shape, f)[0]
             row["bound_ffma_ms"] = conv_bound(shape, f)[0]
             row["bound_tc_bf16_ms"] = tc_bound(shape, f, dtype=torch.bfloat16)[0]
@@ -1340,7 +1652,7 @@ def main():
                 f"{row['bound_ffma_ms']:.3f}, MMAs issued / useful {row['issued_macs'] / row['useful_macs']:.3f}) | "
                 f"cuDNN F.conv3d {row['library_ms']:.3f}, TF32 {row['library_tf32_ms']:.3f} | plain "
                 f"{row['plain_ms']:.3f}, TF32 {row['plain_tf32_ms']:.3f} | K2 bf16 {row['kernel_bf16_ms']:.3f} ms "
-                f"(bf16 bound {row['bound_tc_bf16_ms']:.3f})")
+                f"(bf16 bound {row['bound_tc_bf16_ms']:.3f}, cuDNN bf16 {row['library_bf16_ms']:.3f})")
             del x, w, b, xb, wb, bb
         k2_sums = {key: sum(r[key] for r in times) for key in times[0] if key.endswith(("_ms", "_macs"))}
         conv_ms, plain_ms, plain_tf32_ms = k2_sums["kernel_ms"], k2_sums["plain_ms"], k2_sums["plain_tf32_ms"]
@@ -1350,7 +1662,7 @@ def main():
             f"{k2_sums['bound_ms']:.2f}, FFMA {k2_sums['bound_ffma_ms']:.2f} | MMAs issued / useful {mma_ratio:.4f} | "
             f"cuDNN {k2_sums['library_ms']:.2f}, TF32 {k2_sums['library_tf32_ms']:.2f} | plain {plain_ms:.2f}, TF32 "
             f"{plain_tf32_ms:.2f} | K2 bf16 {k2_sums['kernel_bf16_ms']:.2f} ms (bf16 bound "
-            f"{k2_sums['bound_tc_bf16_ms']:.2f})")
+            f"{k2_sums['bound_tc_bf16_ms']:.2f}, cuDNN bf16 {k2_sums['library_bf16_ms']:.2f})")
 
         torch.cuda.reset_peak_memory_stats()
         fwd_ms = timed_ms(lambda: model(x0))
@@ -1500,19 +1812,27 @@ def main():
             check(err <= tol, f"conv3d_input_grad of {name} differs from its plain version by {err} (tol {tol})")
             row["kernel_tflops"] = 2 * 27 * np.prod(shape) * c / row["kernel_ms"] / 1e9
             row["bound_ms"] = tc_bound(shape, c, False)[0]
+            dy16, w16, w_flip16 = dy.bfloat16(), w.bfloat16(), w_flip.bfloat16()
+            dy16_ncdhw = dy16.permute(0, 4, 1, 2, 3)
+            row["kernel_bf16_ms"] = timed_ms(lambda: conv3d_input_grad(dy16, w16))
+            row["library_bf16_ms"] = timed_ms(lambda: torch.nn.functional.conv3d(dy16_ncdhw, w_flip16, padding=1))
+            row["bound_tc_bf16_ms"] = tc_bound(shape, c, False, dtype=torch.bfloat16)[0]
             dgrad_times.append(row)
             log(f"[8 dgrad] {name:42s} dy{shape} -> C={c:<3d} K3 {row['kernel_ms']:.3f} ms "
                 f"({row['kernel_tflops']:.1f} TFLOP/s, 3xTF32 bound {row['bound_ms']:.3f}) | F.conv3d on the "
                 f"flipped weights {row['library_ms']:.3f} ms | plain {row['reference_ms']:.3f} ms | cuDNN "
                 f"conv3d_input {row['conv3d_input_ms']:.3f} ms, TF32 {row['conv3d_input_tf32_ms']:.3f} ms | "
-                f"max|d| vs plain {err:.2e} (tol {tol:.2e})")
-            del dy, w, w_torch, dy_ncdhw, w_flip, want
+                f"max|d| vs plain {err:.2e} (tol {tol:.2e}) | K3 bf16 {row['kernel_bf16_ms']:.3f} ms (bf16 bound "
+                f"{row['bound_tc_bf16_ms']:.3f}, cuDNN bf16 on the flipped weights {row['library_bf16_ms']:.3f})")
+            del dy, w, w_torch, dy_ncdhw, w_flip, want, dy16, w16, w_flip16, dy16_ncdhw
     k3_sums = {key: sum(r[key] for r in dgrad_times) for key in dgrad_times[0] if key.endswith("_ms")}
     dgrad_tflop = sum(2 * 27 * np.prod(s) * c for _, s, c in train_dgrads) / 1e12
     log(f"[8 dgrad] all {len(train_dgrads)} input grads of one step ({dgrad_tflop:.3f} TFLOP): K3 "
         f"{k3_sums['kernel_ms']:.2f} ms | 3xTF32 bound {k3_sums['bound_ms']:.2f} | F.conv3d flipped "
         f"{k3_sums['library_ms']:.2f} ms | plain {k3_sums['reference_ms']:.2f} ms | cuDNN conv3d_input "
-        f"{k3_sums['conv3d_input_ms']:.2f} ms, TF32 {k3_sums['conv3d_input_tf32_ms']:.2f} ms")
+        f"{k3_sums['conv3d_input_ms']:.2f} ms, TF32 {k3_sums['conv3d_input_tf32_ms']:.2f} ms | K3 bf16 "
+        f"{k3_sums['kernel_bf16_ms']:.2f} ms (bf16 bound {k3_sums['bound_tc_bf16_ms']:.2f}, cuDNN bf16 on the flipped "
+        f"weights {k3_sums['library_bf16_ms']:.2f})")
 
     wgrad_times = []
     with torch.inference_mode():
@@ -1566,7 +1886,10 @@ def main():
     # 19-20. bf16 training with device augmentation
     bf16 = bf16_train_phases(device, (train_batch, val_batch), step_ms)
 
-    by_path_dtype = {**sweep["launches"], **bf16}
+    # 21-23. the multiclass and denoising recipes
+    recipes = recipe_phases(device, volume, (train_batch, val_batch))
+
+    by_path_dtype = {**sweep["launches"], **bf16, **recipes}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}
@@ -1586,7 +1909,8 @@ def main():
          "bound_ffma_ms": k2_bound_ffma[0], "bound_ffma_by": k2_bound_ffma[1], "library_ms": k2_sums["library_ms"],
          "library_tf32_ms": k2_sums["library_tf32_ms"], "library_call": "F.conv3d(x, w), NCDHW views",
          "bf16_ms": k2_sums["kernel_bf16_ms"], "bound_tc_bf16_ms": k2_sums["bound_tc_bf16_ms"],
-         "mma_issued_over_useful": mma_ratio, "ptxas": ptxas["conv3d_fwd"], "shapes": n_conv,
+         "library_bf16_ms": k2_sums["library_bf16_ms"], "mma_issued_over_useful": mma_ratio,
+         "ptxas": ptxas["conv3d_fwd"], "shapes": n_conv,
          "work": "the 14 conv forwards of one UNet3D 112x234x234 patch, f32"},
         {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
@@ -1598,7 +1922,8 @@ def main():
          "bound_by": k3_bound[1], "bound_ffma_ms": k3_bound_ffma[0], "bound_ffma_by": k3_bound_ffma[1],
          "library_ms": k3_sums["library_ms"], "library_call": "F.conv3d(dy, flipped w), NCDHW views",
          "conv3d_input_ms": k3_sums["conv3d_input_ms"], "conv3d_input_tf32_ms": k3_sums["conv3d_input_tf32_ms"],
-         "ptxas": ptxas["conv3d_packw"], "shapes": len(train_dgrads),
+         "bf16_ms": k3_sums["kernel_bf16_ms"], "bound_tc_bf16_ms": k3_sums["bound_tc_bf16_ms"],
+         "library_bf16_ms": k3_sums["library_bf16_ms"], "ptxas": ptxas["conv3d_packw"], "shapes": len(train_dgrads),
          "work": "the 14 input gradients of one UNet3D 80x170x170 train step, f32"},
         {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
@@ -1609,7 +1934,8 @@ def main():
          "bound_ms": res["k1_bound"][0], "bound_by": res["k1_bound"][1], "bound_ffma_ms": res["k1_bound_ffma"][0],
          "bound_ffma_by": res["k1_bound_ffma"][1], "library_ms": res["k1_library_ms"],
          "library_call": "F.conv3d(x, w), NCDHW views", "bf16_ms": res["k1_bf16_ms"],
-         "bound_tc_bf16_ms": res["k1_bound_tc_bf16_ms"], "ptxas": ptxas["conv3d_im2col"],
+         "bound_tc_bf16_ms": res["k1_bound_tc_bf16_ms"], "library_bf16_ms": res["k1_library_bf16_ms"],
+         "ptxas": ptxas["conv3d_im2col"],
          "k2_same_shapes_ms": res["k2_same_ms"], "shapes": res["k1_count"],
          "work": "the 14 K1 conv forwards of one ResidualUNet3D 112x234x234 patch, f32"},
     ]

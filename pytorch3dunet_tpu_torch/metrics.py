@@ -4,12 +4,16 @@ The port's own copy of the numpy metric classes of pytorch3dunet_tpu/metrics.py,
 with parity to the reference (pytorch3dunet/unet3d/metrics.py). Metrics run on
 the host at validation cadence — exactly as the reference, which leaves the
 device at metrics.py:131,299 — so they are numpy implementations on
-channels-first (N, C, D, H, W) arrays, the port's layout. The device twins of
-the JAX package (`device_metric_fn`) are not ported yet (ROADMAP Queue 1, "The rest of
-the losses and metrics").
+channels-first (N, C, D, H, W) arrays, the port's layout.
+
+`device_metric_fn` gives the device twins of the reduction-only metrics
+(Dice, MeanIoU, MSE, PSNR): torch functions on the device tensors, so that a
+validation batch leaves one 0-d tensor on the device instead of sending its
+probability volume to the host.
 """
 
 import numpy as np
+import torch
 
 from pytorch3dunet_tpu_torch.seg_metrics import Accuracy, AveragePrecision
 from pytorch3dunet_tpu_torch.utils.misc import get_class, get_logger
@@ -299,6 +303,67 @@ class MSE:
 
     def __call__(self, pred, truth):
         return float(mean_squared_error(np.asarray(pred), np.asarray(truth)))
+
+
+def _dice_twin(epsilon):
+    def dice(probs, target):
+        non_channel = (0, *range(2, probs.ndim))
+        p, t = probs.float(), target.float()
+        intersect = (p * t).sum(non_channel)
+        denominator = (p * p).sum(non_channel) + (t * t).sum(non_channel)
+        return (2.0 * intersect / denominator.clamp(min=epsilon)).mean()
+
+    return dice
+
+
+def _mean_iou_twin(skip_background):
+    epsilon = 1e-8
+
+    def iou(pred, tar, spatial):
+        inter = (pred & tar).sum(spatial)
+        union = (pred | tar).sum(spatial)
+        return (inter + epsilon) / (union + epsilon)
+
+    def mean_iou(probs, target):
+        if target.ndim == probs.ndim:  # channelwise: each channel at 0.5
+            return iou(probs > 0.5, target != 0, tuple(range(2, probs.ndim))).mean()
+        pred_cls = probs.argmax(dim=1)  # the first maximum, as np.argmax
+        spatial = tuple(range(1, pred_cls.ndim))
+        first = 1 if skip_background else 0
+        return torch.stack([iou(pred_cls == c, target == c, spatial) for c in range(first, probs.shape[1])]).mean()
+
+    return mean_iou
+
+
+def _mse_twin(probs, target):
+    return ((probs.float() - target.float()) ** 2).mean()
+
+
+def _psnr_twin(probs, target):
+    t, p = target.float(), probs.float()
+    data_range = torch.where(t.min() >= 0, 1.0, 2.0)
+    err = ((t - p) ** 2).mean()
+    return torch.where(err == 0, torch.inf, 10.0 * torch.log10(data_range**2 / err.clamp(min=1e-38)))
+
+
+def device_metric_fn(criterion):
+    """The device twin of `criterion`, or None (JAX metrics.py
+    `device_metric_fn`).
+
+    A twin takes the model's NCDHW probabilities and the target on the device
+    (a class map has no channel axis) and returns a 0-d float32 tensor there,
+    equal to the host metric up to f32 rounding. The metrics that need host
+    algorithms (connected components, adapted rand, average precision) have
+    none and run on the host."""
+    if type(criterion) is DiceCoefficient:
+        return _dice_twin(criterion.epsilon)
+    if type(criterion) is MeanIoU:
+        return _mean_iou_twin(criterion.skip_background)
+    if type(criterion) is MSE:
+        return _mse_twin
+    if type(criterion) is PSNR:
+        return _psnr_twin
+    return None
 
 
 def get_evaluation_metric(config):

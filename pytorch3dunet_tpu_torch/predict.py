@@ -7,26 +7,30 @@ weights are preferred when it carries them (as `predict3dunet` does).
 On CUDA the default `StandardPredictor` becomes `DeviceSlidingWindowPredictor`
 (the sweep on the device), as the JAX CLI does on its accelerator;
 `predictor.force_host: true` keeps the host loop. On `device: cpu` the host
-loop stays the default.
+loop stays the default. `LazyPredictor` is always the host loop.
+
+With `predictor.performance_metric` each volume is scored against its ground
+truth; the per-class average and the average over the volumes are logged.
 """
 
 import os
 import sys
 
+import numpy as np
 import torch
 
 from pytorch3dunet_tpu_torch.config import load_config, resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_test_loaders
 from pytorch3dunet_tpu_torch.models.unet import get_model
-from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor, StandardPredictor
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, ITEM_PREDICTORS, get_logger, not_ported
+from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor, LazyPredictor, StandardPredictor
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, get_logger, not_ported
 from pytorch3dunet_tpu_torch.utils.weights import load_weights
 
 logger = get_logger("UNet3DPredict")
 
-_PREDICTORS = {cls.__name__: cls for cls in (StandardPredictor, DeviceSlidingWindowPredictor)}
+_PREDICTORS = {cls.__name__: cls for cls in (StandardPredictor, LazyPredictor, DeviceSlidingWindowPredictor)}
 # predictors of the JAX package that the port does not have yet, with their ROADMAP item
-_NOT_PORTED = {"LazyPredictor": ITEM_PREDICTORS, "DSB2018Predictor": ITEM_2D}
+_NOT_PORTED = {"DSB2018Predictor": ITEM_2D}
 
 
 def get_predictor(model, config: dict):
@@ -50,8 +54,9 @@ def get_predictor(model, config: dict):
     return _PREDICTORS[class_name](model, output_dir, out_channels, device=config["device"], **predictor_config)
 
 
-def run(config: dict):
-    """Builds the model, loads its weights and predicts every test file."""
+def run(config: dict) -> list:
+    """Builds the model, loads its weights and predicts every test file;
+    returns the per-volume `performance_metric` scores (empty without one)."""
     device = config["device"] = resolve_device(config.get("device"))
     logger.info(f"Using device: {device}")
     model = get_model(config["model"])
@@ -59,9 +64,12 @@ def run(config: dict):
     load_weights(model, config["model_path"])
     model = model.to(device).eval()
     predictor = get_predictor(model, config)
+    metrics = []
     try:
         for test_loader in get_test_loaders(config):
-            predictor(test_loader)
+            metric = predictor(test_loader)
+            if metric is not None:
+                metrics.append(metric)
     finally:
         # join the write-behind output write of the last volume. When the loop
         # is already unwinding with its own exception, a write failure here
@@ -73,11 +81,16 @@ def run(config: dict):
                 predictor.finalize()
             except Exception:  # noqa: BLE001
                 logger.exception("write-behind save ALSO failed while handling the error above")
+    if metrics:
+        scores = np.asarray(metrics, dtype=np.float64)
+        logger.info(f"Per-class average metric: {scores.mean(axis=0)}")
+        logger.info(f"Average metric: {scores.mean()}")
+    return metrics
 
 
-def main(argv=None):
+def main(argv=None) -> list:
     config, _ = load_config(argv)
-    run(config)
+    return run(config)
 
 
 if __name__ == "__main__":

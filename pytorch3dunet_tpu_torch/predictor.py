@@ -1,13 +1,16 @@
 """Sliding-window prediction: patch forward, halo crop, stitch.
 
 The counterparts of pytorch3dunet_tpu/predictor.py `StandardPredictor` (host
-patch loop) and `DeviceSlidingWindowPredictor` (the sweep on the device).
+patch loop), `LazyPredictor` (the host loop writing into a chunked H5
+dataset) and `DeviceSlidingWindowPredictor` (the sweep on the device).
 
 `StandardPredictor`: patches arrive halo-padded from the test loader; the
 predicted halo is cropped and the core is assigned at the patch's index, so at
 stride == patch stitching is pure assignment. `__call__` runs an HDF5 test
 loader and writes a gzip H5 file; `predict_array` runs the same loop on an
-in-memory volume.
+in-memory volume. With `performance_metric` ('dice' or 'mean_iou') `__call__`
+returns the saved prediction's score against `gt_internal_path` of the input
+file (`evaluate` compares two arrays, without h5py).
 
 `DeviceSlidingWindowPredictor`: the volume goes to the device once and the
 patch loop, the normalization and the stitching run there
@@ -27,7 +30,7 @@ import torch
 from pytorch3dunet_tpu_torch.augment.transforms import Transformer
 from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder, calculate_stats, mirror_pad, remove_padding
 from pytorch3dunet_tpu_torch.ops.tta import flip_combos, patch_axes_to_array_axes, resolve_tta_axes, tta_average
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_PREDICTORS, get_logger, not_ported
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("UNetPredictor")
 
@@ -49,16 +52,18 @@ class StandardPredictor:
         output_dataset: name of the H5 dataset for the predictions.
         save_segmentation: save a binarized / argmax segmentation instead of probabilities.
         prediction_channel: save only this channel of the output.
+        performance_metric: 'dice' or 'mean_iou': score the saved prediction
+            against the ground truth; `__call__` returns the score.
+        gt_internal_path: H5 path of the ground truth in the input file.
         tta: mirror-flip test-time augmentation: average the probabilities over
             every flip combination of the spatial axes (8 forwards).
         tta_axes: restrict mirroring to these axes (0=z, 1=y, 2=x).
     """
 
     def __init__(self, model, output_dir, out_channels, device, output_dataset="predictions",
-                 save_segmentation=False, prediction_channel=None, tta=False, tta_axes=None, **kwargs):
+                 save_segmentation=False, prediction_channel=None, performance_metric=None, gt_internal_path=None,
+                 tta=False, tta_axes=None, **kwargs):
         assert out_channels > 0, f"Invalid number of output channels: {out_channels}"
-        if kwargs.get("performance_metric"):
-            raise not_ported("predictor.performance_metric", ITEM_PREDICTORS)
         self.model = model
         self.output_dir = output_dir
         self.out_channels = out_channels
@@ -66,6 +71,8 @@ class StandardPredictor:
         self.output_dataset = output_dataset
         self.save_segmentation = save_segmentation
         self.prediction_channel = prediction_channel
+        self.performance_metric = performance_metric
+        self.gt_internal_path = gt_internal_path
         self.tta = tta
         self.tta_axes = tta_axes
         if tta:
@@ -135,16 +142,33 @@ class StandardPredictor:
         dataset = test_loader.dataset
         logger.info(f"Processing '{dataset.file_path}'...")
         start = time.perf_counter()
-        dtype = "uint16" if self.save_segmentation else "float32"
-        prediction_array = np.zeros(self._prediction_shape(dataset.volume_shape), dtype=dtype)
-        logger.info(f"Using halo: {dataset.halo_shape}; running inference on {len(test_loader)} batches")
-        self._stitch(test_loader, prediction_array, dataset.halo_shape)
-        logger.info(f"Finished inference in {time.perf_counter() - start:.2f} seconds")
-
         output_file = _get_output_file(dataset, output_dir=self.output_dir)
         logger.info(f"Saving predictions to: {output_file}")
         with h5py.File(output_file, "w") as f:
-            f.create_dataset(self.output_dataset, data=prediction_array, compression="gzip")
+            prediction_array = self._allocate_prediction_array(self._prediction_shape(dataset.volume_shape), f)
+            logger.info(f"Using halo: {dataset.halo_shape}; running inference on {len(test_loader)} batches")
+            self._stitch(test_loader, prediction_array, dataset.halo_shape)
+            logger.info(f"Finished inference in {time.perf_counter() - start:.2f} seconds")
+            self._create_prediction_dataset(f, prediction_array)
+            if self.performance_metric is not None:
+                return self._evaluate(prediction_array[...], dataset)
+        return None
+
+    def _output_dtype(self) -> str:
+        return "uint16" if self.save_segmentation else "float32"
+
+    def _allocate_prediction_array(self, output_shape, output_file):
+        return np.zeros(output_shape, dtype=self._output_dtype())
+
+    def _create_prediction_dataset(self, output_file, prediction_array):
+        output_file.create_dataset(self.output_dataset, data=prediction_array, compression="gzip")
+
+    def _evaluate(self, prediction_array, dataset):
+        """The saved prediction's `performance_metric` against the input
+        file's `gt_internal_path`."""
+        assert self.gt_internal_path is not None
+        return evaluate(prediction_array, _load_dataset(dataset, self.gt_internal_path), self.performance_metric,
+                        self.out_channels)
 
     def patches(self, volume, patch_shape, stride_shape, halo_shape, transformer_config):
         """(patch, index) pairs of an in-memory (D, H, W) volume, as the HDF5
@@ -170,6 +194,63 @@ class StandardPredictor:
         self._stitch(((patch[None], [index]) for patch, index in patches), out, tuple(halo_shape),
                      probabilities=True)
         return out
+
+
+class LazyPredictor(StandardPredictor):
+    """Writes the predicted patches straight into a chunked gzip H5 dataset,
+    for volumes that do not fit in host memory."""
+
+    def _allocate_prediction_array(self, output_shape, output_file):
+        return output_file.create_dataset(self.output_dataset, shape=output_shape, dtype=self._output_dtype(),
+                                          chunks=True, compression="gzip")
+
+    def _create_prediction_dataset(self, output_file, prediction_array):
+        """The patches are already in the file."""
+
+
+def _load_dataset(dataset, internal_path: str) -> np.ndarray:
+    import h5py
+
+    with h5py.File(dataset.file_path, "r") as f:
+        return f[internal_path][...]
+
+
+def evaluate(prediction: np.ndarray, gt: np.ndarray, performance_metric: str, n_classes: int):
+    """A saved prediction's score against its ground truth: per-channel
+    `dice_score` or per-class `mean_iou` (a list, not averaged)."""
+    assert performance_metric in ["dice", "mean_iou"], (
+        f"Unsupported performance metric: {performance_metric}, only dice and mean_iou are supported")
+    if performance_metric == "dice":
+        return dice_score(prediction, gt)
+    return mean_iou(prediction, gt, n_classes=n_classes)
+
+
+def mean_iou(pred: np.ndarray, gt: np.ndarray, n_classes: int, avg: bool = False):
+    """Per-class IoU of a segmentation against ground truth, background
+    skipped; a class absent from both gives NaN (0 / 0)."""
+    pred = pred.astype("uint16")
+    gt = gt.astype("uint16")
+    assert pred.shape == gt.shape, f"Predictions and ground truth have different shapes: {pred.shape} != {gt.shape}"
+    per_class_iou = []
+    for c in range(1, n_classes):
+        intersection = np.logical_and(gt == c, pred == c).sum()
+        union = np.logical_or(gt == c, pred == c).sum()
+        per_class_iou.append(intersection / union)
+    return np.mean(per_class_iou) if avg else per_class_iou
+
+
+def dice_score(pred: np.ndarray, gt: np.ndarray, avg: bool = False):
+    """Dice of each (C, ...) channel of a prediction against ground truth,
+    both cast to uint16."""
+    pred = pred.astype("uint16")
+    gt = gt.astype("uint16")
+    assert pred.shape == gt.shape, f"Predictions and ground truth have different shapes: {pred.shape} != {gt.shape}"
+    per_class_dice = []
+    for c_pred, c_gt in zip(pred, gt):
+        intersection = np.logical_and(c_gt, c_pred).sum()
+        union = c_gt.sum() + c_pred.sum()
+        per_class_dice.append(2 * intersection / union)
+    return np.mean(per_class_dice) if avg else per_class_dice
 
 
 def _read_padded_slab(raw, halo_shape, z_lo: int, z_hi: int) -> np.ndarray:
@@ -327,7 +408,8 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         write_behind: run the gzip H5 output write on a background thread so
             the next volume's sweep overlaps it (default true). The previous
             volume's prediction stays in host memory meanwhile; false saves
-            inline.
+            inline, and so does a `performance_metric`, which scores the
+            saved array.
         max_patch_voxels: padded-voxel budget for one slab forward in 'slab'
             mode (default 2**24).
     """
@@ -425,8 +507,11 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         prediction_array = sweep(padded, starts, stats=stats)  # (Cout, D, H, W)
         logger.info(f"Finished device inference in {time.perf_counter() - start:.2f} seconds")
 
-        if not self.write_behind:
-            self._save_output(prediction_array, dataset)
+        if self.performance_metric is not None or not self.write_behind:
+            # the metric scores the saved (segmented) array: save inline
+            prediction_array = self._save_output(prediction_array, dataset)
+            if self.performance_metric is not None:
+                return self._evaluate(prediction_array, dataset)
             return None
         # write-behind: the gzip H5 write runs on a background thread so the
         # next volume's sweep overlaps it; finalize() joins the tail write
@@ -539,6 +624,8 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
 
             self._chunked_sweep(raw_dset, starts, patch_shape, dataset.halo_shape, normalize, stats, consume)
             logger.info(f"Finished device inference in {time.perf_counter() - t_start:.2f} seconds")
+            if self.performance_metric is not None:
+                return self._evaluate(dset[...], dataset)
         return None
 
     def _chunked_sweep(self, raw, starts, patch_shape, halo_shape, normalize, stats, consume):

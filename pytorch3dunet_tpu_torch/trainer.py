@@ -3,8 +3,9 @@
 The workflow of the JAX trainer and of the reference pytorch-3dunet
 UNetTrainer: epochs counted in iterations, a step of forward, loss on the
 logits, `zero_grad` / `backward` / `step`; validation every
-`validate_after_iters` under `torch.no_grad()` with the host numpy metric of
-`metrics.py`; ReduceLROnPlateau stepped on the eval score; last/best checkpoints;
+`validate_after_iters` under `torch.no_grad()`, scored by the metric's device
+twin where it has one (Dice, MeanIoU, MSE, PSNR) and by the host numpy metric
+of `metrics.py` otherwise; ReduceLROnPlateau stepped on the eval score; last/best checkpoints;
 stop at `max_num_iterations` or when the lr falls below 1e-6; `resume` and
 `pre_trained`.
 
@@ -37,7 +38,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from pytorch3dunet_tpu_torch.metrics import get_evaluation_metric
+from pytorch3dunet_tpu_torch.metrics import device_metric_fn, get_evaluation_metric
 from pytorch3dunet_tpu_torch.utils.misc import (ITEM_PARALLELISM, ITEM_TRAINER, RunningAverage, get_logger,
                                                 not_ported, roadmap)
 from pytorch3dunet_tpu_torch.config import resolve_device
@@ -147,6 +148,10 @@ class UNetTrainer:
         self.num_iterations = num_iterations
         self.num_epochs = num_epoch
         self.device_augmenter = device_augmenter
+        self.device_metric = device_metric_fn(eval_criterion)
+        where = "on the device (2 scalars per batch read after the loop)" if self.device_metric else \
+            "on the host (each batch's probabilities are downloaded)"
+        logger.info(f"Validation metric {type(eval_criterion).__name__} runs {where}")
         if device_augmenter is not None:
             # (host generator of the scalar draws, device generator of the fields)
             self.augment_generators = (torch.Generator(), torch.Generator(device=self.device))
@@ -270,26 +275,42 @@ class UNetTrainer:
         return False
 
     def validate(self) -> float:
+        """Loss and eval score averaged over the validation batches. With a
+        device twin of the eval metric (`metrics.device_metric_fn`) both stay
+        0-d device tensors until the loop has ended, so the loop makes no host
+        sync (JAX trainer.py `validate`); otherwise each batch's probabilities
+        go to the host metric."""
         logger.info("Validating...")
-        val_losses = RunningAverage()
-        val_scores = RunningAverage()
+        pending = []
         self.model.eval()
         try:
             with torch.no_grad():
                 for i, (raw, target_host) in enumerate(self.loaders["val"]):
                     inp, target = self._prepare_batch(raw, target_host)
                     probs, logits = self.model(inp)
-                    batch_size = inp.shape[0]
-                    val_losses.update(self.loss_criterion(logits, target).item(), batch_size)
-                    score = self.eval_criterion(probs.cpu().numpy(), np.asarray(target_host))
-                    val_scores.update(float(score), batch_size)
+                    loss = self.loss_criterion(logits, target)
+                    if self.device_metric is not None:
+                        score = self.device_metric(probs, target)
+                    else:
+                        score = float(self.eval_criterion(probs.cpu().numpy(), np.asarray(target_host)))
+                    pending.append((loss, score, inp.shape[0]))
                     if self.validate_iters is not None and self.validate_iters <= i:
                         break
         finally:
             self.model.train()
+        val_losses, val_scores = self._averages(pending)
         logger.info(f"Validation finished. Loss: {val_losses.avg}. Evaluation score: {val_scores.avg}")
         self._log_stats("val", val_losses.avg, val_scores.avg)
         return val_scores.avg
+
+    @staticmethod
+    def _averages(pending):
+        """RunningAverages of the (loss, score, batch size) triples, read on the host."""
+        losses, scores = RunningAverage(), RunningAverage()
+        for loss, score, batch_size in pending:
+            losses.update(float(loss), batch_size)
+            scores.update(float(score), batch_size)
+        return losses, scores
 
     def _is_best_eval_score(self, eval_score: float) -> bool:
         if self.eval_score_higher_is_better:

@@ -1,5 +1,6 @@
-"""bf16 training in the port against the JAX package, and the three `_tpu`
-train configs that need nothing else (device augmentation and a bf16 model)
+"""bf16 training in the port against the JAX package, and the five `_tpu`
+train configs (device augmentation and a bf16 model; the multiclass one with
+CrossEntropyLoss and MeanIoU, the denoising one with SmoothL1Loss and PSNR)
 through the port's train CLI.
 
 A bf16 step keeps float32 parameters, gradients and Adam moments; the model
@@ -172,12 +173,16 @@ def _load(name):
         return yaml.safe_load(f)
 
 
-def _write_volume(path, seed, label_path="label"):
-    """An 8 x 64 x 64 raw and its instance label of boxes (ids 1..19)."""
+def _write_volume(path, seed, label_path="label", classes=None):
+    """An 8 x 64 x 64 raw and its instance label of boxes (ids 1..19), or
+    with `classes` a class map of the ids modulo `classes`; a `label_path`
+    other than 'label' holds a copy of the raw (the denoising target)."""
     rs = np.random.RandomState(seed)
     cells = rs.randint(1, 20, (2, 8, 8))
     label = np.kron(cells, np.ones((4, 8, 8), dtype=cells.dtype))
     raw = (label % 3).astype(np.float32) + 0.5 * rs.rand(*PATCH).astype(np.float32)
+    if classes:
+        label = label % classes
     with h5py.File(path, "w") as f:
         f.create_dataset("raw", data=raw)
         f.create_dataset(label_path, data=label.astype(np.int64) if label_path == "label" else raw)
@@ -203,12 +208,19 @@ def _shrunk(config, tmp):
     return config
 
 
-@pytest.mark.parametrize("name", ["confocal_boundary", "lightsheet_boundary", "lightsheet_nuclei"])
+# the target the augmenter hands the loss: (channels, dtype)
+AUGMENTED_TARGETS = {"confocal_boundary": (2, torch.float32), "lightsheet_boundary": (2, torch.float32),
+                     "lightsheet_nuclei": (2, torch.float32), "multiclass": (1, torch.int64),
+                     "denoising": (1, torch.float32)}
+
+
+@pytest.mark.parametrize("name", list(TPU_TRAIN_CONFIGS))
 def test_tpu_train_config_trains_through_the_cli(name, tmp_path, monkeypatch):
     config = _shrunk(_load(name), str(tmp_path))
     assert config["loaders"]["device_augment"] and config["model"]["dtype"] == "bfloat16"
     for phase, seed in (("train", 0), ("val", 1)):
-        _write_volume(tmp_path / f"{phase}.h5", seed)
+        _write_volume(tmp_path / f"{phase}.h5", seed, config["loaders"]["label_internal_path"],
+                      classes=config["model"]["out_channels"] if name == "multiclass" else None)
     path = tmp_path / "train_config.yml"
     path.write_text(yaml.safe_dump(config))
     stats, augmented = [], []
@@ -221,8 +233,10 @@ def test_tpu_train_config_trains_through_the_cli(name, tmp_path, monkeypatch):
                         lambda self, *args: augmented.append(augment(self, *args)) or augmented[-1])
     train.main(["--config", str(path)])
 
-    # 3 train batches augmented; targets engineered on the device: 2 channels
-    assert len(augmented) == 3 and all(t.shape == (1, 2, *PATCH) for _, t in augmented)
+    # 3 train batches augmented; the boundary and nuclei targets engineered on
+    # the device (2 channels), the class map with a channel axis for the augmenter
+    channels, dtype = AUGMENTED_TARGETS[name]
+    assert len(augmented) == 3 and all(t.shape == (1, channels, *PATCH) and t.dtype == dtype for _, t in augmented)
     assert {phase for phase, _, _ in stats} == {"train", "val"}
     assert all(np.isfinite(loss) and np.isfinite(score) for _, loss, score in stats), stats
     checkpoint = os.path.join(config["trainer"]["checkpoint_dir"], "last_checkpoint.pytorch")
@@ -235,10 +249,3 @@ def test_tpu_train_config_trains_through_the_cli(name, tmp_path, monkeypatch):
     assert set(want) <= set(state["model_state_dict"])
     for key, value in want.items():
         np.testing.assert_array_equal(value.numpy(), state["model_state_dict"][key].numpy(), err_msg=key)
-
-
-@pytest.mark.parametrize("name", ["multiclass", "denoising"])
-def test_tpu_train_configs_with_unported_losses_refuse(name, tmp_path):
-    config = _shrunk(_load(name), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="The rest of the losses and metrics"):
-        create_trainer(config, loaders={"train": [], "val": []})

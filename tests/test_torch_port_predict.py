@@ -13,12 +13,17 @@ import pytest
 import torch
 import yaml
 
+from pytorch3dunet_tpu import predict as jax_predict
+from pytorch3dunet_tpu.datasets.utils import get_test_loaders as jax_get_test_loaders
 from pytorch3dunet_tpu.models import get_model as jax_get_model
 from pytorch3dunet_tpu.utils.torch_interop import save_torch_checkpoint
+from pytorch3dunet_tpu_torch import predict as port_predict
 from pytorch3dunet_tpu_torch.config import load_config, resolve_device
+from pytorch3dunet_tpu_torch.datasets.utils import get_test_loaders
 from pytorch3dunet_tpu_torch.models.unet import get_model
 from pytorch3dunet_tpu_torch.predict import get_predictor, run
-from pytorch3dunet_tpu_torch.predictor import StandardPredictor
+from pytorch3dunet_tpu_torch.predictor import (DeviceSlidingWindowPredictor, LazyPredictor, StandardPredictor,
+                                               evaluate, mean_iou)
 from pytorch3dunet_tpu_torch.utils.weights import load_weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,6 +56,16 @@ def _read(path):
         return f["predictions"][:]
 
 
+def _perturbed_variables(model, seed=1):
+    """JAX init with non-trivial norm affines (init leaves them 1 / 0)."""
+    variables = model.init(jax.random.PRNGKey(0))
+    rs = np.random.RandomState(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, v: (rs.rand(*v.shape).astype(np.float32) + 0.5) if path[-1].key == "scale"
+        else (rs.rand(*v.shape).astype(np.float32) * 0.4 - 0.2) if path[-1].key == "bias" else np.asarray(v),
+        variables)
+
+
 @pytest.fixture(scope="module")
 def workload(tmp_path_factory):
     """A 16x64x64 volume, a torch-format checkpoint written by the JAX package,
@@ -61,14 +76,7 @@ def workload(tmp_path_factory):
     with h5py.File(os.path.join(tmp, "test.h5"), "w") as f:
         f.create_dataset("raw", data=volume)
 
-    model = jax_get_model(dict(MODEL))
-    variables = model.init(jax.random.PRNGKey(0))
-    rs = np.random.RandomState(1)
-    # non-trivial norm affines (init leaves them 1 / 0)
-    variables = jax.tree_util.tree_map_with_path(
-        lambda path, v: (rs.rand(*v.shape).astype(np.float32) + 0.5) if path[-1].key == "scale"
-        else (rs.rand(*v.shape).astype(np.float32) * 0.4 - 0.2) if path[-1].key == "bias" else np.asarray(v),
-        variables)
+    variables = _perturbed_variables(jax_get_model(dict(MODEL)))
     save_torch_checkpoint(variables, os.path.join(tmp, "weights.pytorch"))
 
     jax_yaml, _ = _config(tmp, "jax.yml", os.path.join(tmp, "jax_out"))
@@ -182,6 +190,116 @@ def test_resolve_device_rejects_unknown():
 
 def test_unported_predictors_raise(tmp_path):
     config = {"loaders": {"output_dir": str(tmp_path)}, "model": MODEL, "device": torch.device("cpu"),
-              "predictor": {"name": "LazyPredictor"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+              "predictor": {"name": "DSB2018Predictor"}}
+    with pytest.raises(NotImplementedError, match="The 2D families and the remaining model options"):
         get_predictor(None, config)
+
+
+# --- performance_metric and LazyPredictor -----------------------------------------------------------------------
+
+# the multiclass recipe (resources/3DUnet_multiclass/test_config.yaml) shrunk: 3 classes, softmax, the argmax saved
+MULTICLASS = {**MODEL, "out_channels": 3, "final_sigmoid": False}
+
+
+@pytest.fixture(scope="module")
+def scored(tmp_path_factory):
+    """Two 16x64x64 volumes with a class map `label` and a binary `mask`, and
+    torch-format checkpoints of a 1-class and a 3-class model."""
+    tmp = str(tmp_path_factory.mktemp("scored"))
+    rs = np.random.RandomState(2)
+    for stem in ("a", "b"):
+        with h5py.File(os.path.join(tmp, f"{stem}.h5"), "w") as f:
+            f.create_dataset("raw", data=rs.rand(16, 64, 64).astype(np.float32))
+            label = np.kron(rs.randint(0, 3, (4, 8, 8)), np.ones((4, 8, 8), dtype=np.int64))
+            f.create_dataset("label", data=label)
+            f.create_dataset("mask", data=(label > 0).astype(np.uint8))
+    for name, model in (("binary", MODEL), ("multiclass", MULTICLASS)):
+        save_torch_checkpoint(_perturbed_variables(jax_get_model(dict(model)), seed=3),
+                              os.path.join(tmp, f"{name}.pytorch"))
+    return tmp
+
+
+def _scored_config(tmp, model, predictor, out, dataset="StandardHDF5Dataset"):
+    name = "multiclass" if model["out_channels"] == 3 else "binary"
+    _, config = _config(tmp, f"{out}.yml", os.path.join(tmp, out))
+    config.update(model=dict(model), predictor=predictor, model_path=os.path.join(tmp, f"{name}.pytorch"))
+    config["loaders"] = dict(config["loaders"], dataset=dataset)
+    config["loaders"]["test"] = dict(config["loaders"]["test"],
+                                     file_paths=[os.path.join(tmp, f"{stem}.h5") for stem in ("a", "b")])
+    path = os.path.join(tmp, f"{out}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path, config
+
+
+def _jax_run(config):
+    """What predict3dunet's main does with `config`, returning the per-volume metrics."""
+    model = jax_get_model(dict(config["model"]))
+    variables = jax_predict.load_model_variables(model, config["model_path"])
+    predictor = jax_predict.get_predictor(model, variables, config)
+    metrics = [predictor(loader) for loader in jax_get_test_loaders(config)]
+    predictor.finalize()
+    return [m for m in metrics if m is not None]
+
+
+@pytest.mark.parametrize("metric,model,gt", [("dice", MODEL, "mask"), ("mean_iou", MULTICLASS, "label")])
+def test_performance_metric_matches_jax_predict3dunet(scored, metric, model, gt):
+    predictor = {"name": "StandardPredictor", "save_segmentation": True, "performance_metric": metric,
+                 "gt_internal_path": gt}
+    path, config = _scored_config(scored, model, predictor, f"port_{metric}")
+    got = port_predict.main(["--config", path])
+    want = _jax_run(_scored_config(scored, model, predictor, f"jax_{metric}")[1])
+    n = 16 if metric == "dice" else 2  # dice of each z-plane of a segmentation; the IoU of classes 1, 2
+    assert np.shape(got) == np.shape(want) == (2, n)
+    # the segmentations may differ where a probability ties within rounding
+    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64), atol=1e-3)
+    with h5py.File(os.path.join(scored, f"port_{metric}", "a_predictions.h5"), "r") as f, \
+            h5py.File(os.path.join(scored, "a.h5"), "r") as g:
+        np.testing.assert_array_equal(evaluate(f["predictions"][:], g[gt][:], metric, model["out_channels"]), got[0])
+
+
+def test_mean_iou_of_a_class_absent_from_both_is_nan():
+    pred = np.zeros((2, 3, 3), np.uint16)
+    gt = np.zeros_like(pred)
+    gt[0, 0, 0] = 1
+    with np.errstate(invalid="ignore"):
+        ious = mean_iou(pred, gt, n_classes=3)
+    assert ious[0] == 0 and np.isnan(ious[1])
+
+
+def test_lazy_predictor_writes_the_standard_and_the_jax_output_in_chunks(scored):
+    predictor = {"name": "LazyPredictor"}
+    path, config = _scored_config(scored, MODEL, predictor, "port_lazy", dataset="LazyHDF5Dataset")
+    assert isinstance(get_predictor(get_model(MODEL), dict(config, device=torch.device("cpu"))), LazyPredictor)
+    port_predict.main(["--config", path])
+    _jax_run(_scored_config(scored, MODEL, predictor, "jax_lazy", dataset="LazyHDF5Dataset")[1])
+    run(_scored_config(scored, MODEL, {"name": "StandardPredictor"}, "port_standard")[1])
+    for stem in ("a", "b"):
+        with h5py.File(os.path.join(scored, "port_lazy", f"{stem}_predictions.h5"), "r") as f:
+            dset = f["predictions"]
+            assert dset.chunks is not None and dset.compression == "gzip" and dset.shape == (1, 16, 64, 64)
+            lazy = dset[:]
+        np.testing.assert_allclose(lazy, _read(os.path.join(scored, "jax_lazy", f"{stem}_predictions.h5")),
+                                   atol=2e-4)
+        np.testing.assert_array_equal(lazy, _read(os.path.join(scored, "port_standard", f"{stem}_predictions.h5")))
+
+
+@pytest.mark.parametrize("max_device_voxels", [int(1e9), 2 * 12 * 72 * 72])
+def test_device_sweep_with_a_metric_saves_inline_and_scores(scored, max_device_voxels):
+    # one-shot, and streamed in z-slabs (the metric read back from the output dataset)
+    predictor = {"name": "DeviceSlidingWindowPredictor", "save_segmentation": True, "performance_metric": "mean_iou",
+                 "gt_internal_path": "label", "shard": False, "max_device_voxels": max_device_voxels}
+    _, config = _scored_config(scored, MULTICLASS, predictor, f"port_sweep_{max_device_voxels}")
+    port = get_predictor(get_model(MULTICLASS), dict(config, device=torch.device("cpu")))
+    assert isinstance(port, DeviceSlidingWindowPredictor)
+    got = run(config)
+    assert port.write_behind  # the default stays; the metric saves inline all the same
+    want = _jax_run(_scored_config(scored, MULTICLASS, predictor, f"jax_sweep_{max_device_voxels}")[1])
+    host = run(_scored_config(scored, MULTICLASS, dict(predictor, name="StandardPredictor"), "port_host_scored")[1])
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-3)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(host), atol=1e-3)
+    for stem, metric in zip(("a", "b"), got):
+        with h5py.File(os.path.join(scored, f"port_sweep_{max_device_voxels}", f"{stem}_predictions.h5"), "r") as f, \
+                h5py.File(os.path.join(scored, f"{stem}.h5"), "r") as g:
+            assert f["predictions"].dtype == np.uint16
+            np.testing.assert_array_equal(mean_iou(f["predictions"][:], g["label"][:], 3), metric)

@@ -21,20 +21,12 @@ from pytorch3dunet_tpu_torch.trainer import create_trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITEM_2D = "The 2D families and the remaining model options"
-ITEM_LOSSES = "The rest of the losses and metrics"
-ITEM_PREDICTORS = "Predictor breadth"
 # the configs the port does not run yet, and the item each one waits for
 REFUSED = {
     "2DUnet_confocal_boundary/test_config.yml": ITEM_2D,
     "2DUnet_confocal_boundary/train_config.yml": ITEM_2D,
     "2DUnet_dsb2018/test_config.yml": ITEM_2D,
     "2DUnet_dsb2018/train_config.yml": ITEM_2D,
-    "3DUnet_confocal_boundary/test_config_lazy.yml": ITEM_PREDICTORS,
-    "3DUnet_denoising/train_config_regression.yaml": ITEM_LOSSES,
-    "3DUnet_denoising_tpu/train_config_regression.yaml": ITEM_LOSSES,
-    "3DUnet_multiclass/test_config.yaml": ITEM_PREDICTORS,
-    "3DUnet_multiclass/train_config.yaml": ITEM_LOSSES,
-    "3DUnet_multiclass_tpu/train_config.yaml": ITEM_LOSSES,
 }
 CONFIGS = sorted(os.path.relpath(p, os.path.join(REPO, "resources"))
                  for p in glob.glob(os.path.join(REPO, "resources", "*", "*.y*ml")))
@@ -51,9 +43,9 @@ def _check(config: dict, tmp):
     _dataset_class(config["loaders"])
 
 
-def test_the_port_runs_15_of_the_25_configs():
+def test_the_port_runs_21_of_the_25_configs():
     assert len(CONFIGS) == 25 and set(REFUSED) <= set(CONFIGS)
-    assert len(CONFIGS) - len(REFUSED) == 15
+    assert len(CONFIGS) - len(REFUSED) == 21
 
 
 @pytest.mark.parametrize("name", CONFIGS)

@@ -27,6 +27,7 @@ from pytorch3dunet_tpu.utils import optim as jax_optim
 from pytorch3dunet_tpu_torch import train
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
 from pytorch3dunet_tpu_torch.models.unet import get_model
+from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
 from pytorch3dunet_tpu_torch.predict import run as predict_run
 from pytorch3dunet_tpu_torch.trainer import UNetTrainer, create_trainer
 from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -63,8 +64,8 @@ def _batches(n, seed=0, shape=SHAPE):
     return out
 
 
-def _jax_step_fn(jax_model, tx):
-    criterion = jax_get_loss_criterion({"loss": dict(LOSS)})
+def _jax_step_fn(jax_model, tx, loss=LOSS):
+    criterion = jax_get_loss_criterion({"loss": dict(loss)})
 
     @jax.jit
     def step(params, opt_state, x, y):
@@ -110,6 +111,58 @@ def test_step_grads_match_jax_grad():
         got = grads_port[name].grad.numpy()
         np.testing.assert_allclose(got, expected, rtol=0, atol=1e-4 * g_max, err_msg=name)
         np.testing.assert_allclose(got, expected, rtol=0, atol=1e-3 * np.abs(expected).max(), err_msg=name)
+
+
+# the model and loss of resources/3DUnet_multiclass (a class-map target) and
+# 3DUnet_denoising (a float target, no final activation), shrunk
+RECIPES = {
+    "multiclass": ({**MODEL, "out_channels": 3, "final_sigmoid": False}, {"name": "CrossEntropyLoss"}),
+    "denoising": ({**MODEL, "is_segmentation": False}, {"name": "SmoothL1Loss", "ignore_index": None}),
+}
+
+
+@pytest.mark.parametrize("recipe", list(RECIPES))
+def test_recipe_loss_step_grads_match_jax_grad(recipe):
+    """One f32 step of the multiclass recipe (CrossEntropyLoss on an
+    (N, D, H, W) int64 class map) and of the denoising recipe (SmoothL1Loss on
+    a float target), every parameter gradient within 1e-4 * max|g| of
+    `jax.grad` and of the port's own float64 step.
+
+    The float64 step holds the port where the JAX f32 step is itself off: at
+    3 levels with the weights and batch of seed 4 the JAX step sits
+    9.4e-4 * max|g| from the port's float64 step (CE and BCE alike; the port's
+    f32 step 8.8e-7), the JAX-side question of ROADMAP Queue 3."""
+    cfg, loss = RECIPES[recipe]
+    jax_model, variables = _jax_model_and_variables(cfg, seed=3)
+    raw, boundary = _batches(1, seed=3, shape=(16, 32, 32))[0]
+    if recipe == "multiclass":
+        target = (boundary[:, 1] % 3).astype(np.int64)
+        jax_target = jnp.asarray(target)
+    else:
+        target = (0.5 * raw + boundary[:, :1]).astype(np.float32)
+        jax_target = jnp.asarray(np.moveaxis(target, 1, -1))
+    tx = optax.sgd(0.0)
+    step = _jax_step_fn(jax_model, tx, loss)
+    *_, grads = step(variables["params"], tx.init(variables["params"]), jnp.asarray(np.moveaxis(raw, 1, -1)),
+                     jax_target)
+    want = state_dict_from_jax({"params": grads})
+
+    def port_grads(dtype):
+        model = get_model(cfg).train()
+        model.load_state_dict(state_dict_from_jax(variables), strict=True)
+        model = model.to(dtype)
+        criterion = get_loss_criterion({"loss": dict(loss)})
+        criterion(model(torch.from_numpy(raw).to(dtype))[1], torch.from_numpy(target)).backward()
+        return {name: p.grad.double().numpy() for name, p in model.named_parameters()}
+
+    got = port_grads(torch.float32)
+    with plain_conv():
+        grads64 = port_grads(torch.float64)
+    assert set(got) == set(want)
+    g_max = max(np.abs(g.numpy()).max() for g in want.values())
+    for name, expected in want.items():
+        np.testing.assert_allclose(got[name], expected.numpy(), rtol=0, atol=1e-4 * g_max, err_msg=name)
+        np.testing.assert_allclose(got[name], grads64[name], rtol=0, atol=1e-4 * g_max, err_msg=name)
 
 
 def _config(tmp, optimizer, **trainer):
