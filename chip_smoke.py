@@ -131,6 +131,35 @@ dicts: MULTICLASS_TPU, DENOISING_TPU):
      probabilities, `predictor.evaluate` (mean IoU) against a numpy mean IoU
      computed here on a class map of the volume, 56 f32 K2, the evaluation's
      time beside the sweep's.
+Phases 24-27 drive the 2D families and the remaining model options (configs
+mirrored as dicts: MODEL_2D, DSB_MODEL, DSB_SECTIONS, OPTIONS_3D); no 2D path
+runs a hand kernel (the JAX package computes every 2D conv outside Pallas), so
+phases 24-26 assert 0 launches of K1, K2 and K3:
+ 24. resources/2DUnet_confocal_boundary/train_config.yml at its width and batch
+     (UNet2D f_maps 32 over 4 levels, gcr, 32 patches of 1x515x512 cut from
+     Voronoi cells): `create_trainer` with 4 steps and 1 validation (ARand on
+     the host on (N, C, 1, H, W)); one step's grads on 4 of the patches against
+     a float64 step (cuDNN deterministic, GroupNorm affines random), each
+     tensor within 1e-3 of the step's max|g| and 1e-2 of its own; the step at
+     batch 32, its peak memory and profile;
+ 25. its test_config.yml on a 64x1024x1024 stack, patch 1x512x512, halo
+     0x32x32: the device sweep (16 tiles a forward) against the host loop on
+     the first 16 planes; `patch_mode: slab` (24 whole planes a forward),
+     plane 0 against its own forward and the grid's cores; one ResidualUNet2D
+     forward (5 levels, deconv, sum joins) of 16 tiles; Mvoxel/s, peak memory
+     and the device's busy share;
+ 26. resources/2DUnet_dsb2018 (UNet2D bcr, f_maps [32, 64, 128]): 4 steps and 1
+     validation (BlobsAveragePrecision) at batch 32 of 256x256, every
+     BatchNorm's running statistics moved; `DSB2018Predictor.predict_image` on
+     8 images of the DSB2018 sizes with pad_to_multiple 64 against the unpadded
+     forward beyond 64 pixels of the pad, the segmentation against scipy's
+     8-connected components of probs > 0.5;
+ 27. the 3D options on the confocal UNet3D on phase 7's batch: upsample
+     trilinear, deconv (DoubleConv, concat) and conv_upscale 1, each forward 14
+     K2 against the plain conv; conv_kernel_size [1, 3, 3] with conv_padding
+     [0, 1, 1] 0 K2 (cuDNN); one f32 trilinear step, 14 K2 + 14 K3, held as
+     phase 13's to a float64 step (the plain f32 step itself is 4.6e-3 of
+     max|g| off it at a level-2 conv).
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -292,6 +321,44 @@ RECIPE_STEPS = 4
 CE_TOL = 1e-5
 # the MeanIoU twin against the host MeanIoU on the same probabilities and target
 TWIN_TOL = 1e-6
+# resources/2DUnet_confocal_boundary: the model of train_config.yml and
+# test_config.yml (its loss, optimizer, eval_metric and lr_scheduler are
+# TRAIN_SECTIONS), the train batch of 32 patches of 1 x 515 x 512, and the test
+# patch and halo on a synthetic 64-plane stack of 1024 x 1024 planes
+MODEL_2D = {"name": "UNet2D", "in_channels": 1, "out_channels": 1, "layer_order": "gcr", "f_maps": 32,
+            "num_groups": 8, "final_sigmoid": True}
+BATCH_2D, PATCH_2D = 32, (1, 515, 512)
+VOLUME_2D, PATCH_2D_TEST, HALO_2D = (64, 1024, 1024), (1, 512, 512), (0, 32, 32)
+# the float64 gradient check of the 2D step takes this many of the 32 patches
+GRAD64_PATCHES_2D = 4
+# 24 padded 1088 x 1088 planes a forward: past max_patch_voxels' default 2**24
+SLAB_BUDGET_2D = 2**25
+# the 2D device sweep against the host loop on the same planes (both cuDNN f32,
+# other batch sizes: another summation order), and one slab plane against its
+# own forward
+SWEEP_2D_TOL = 1e-4
+# resources/2DUnet_dsb2018: the model, loss, optimizer, eval_metric, lr_scheduler,
+# the batch of 32 crops of 256 x 256, and the predictor's pad_to_multiple
+DSB_MODEL = {"name": "UNet2D", "in_channels": 1, "out_channels": 1, "layer_order": "bcr", "num_groups": 8,
+             "f_maps": [32, 64, 128], "final_sigmoid": True, "is_segmentation": True}
+DSB_SECTIONS = {
+    "loss": {"name": "BCEDiceLoss", "skip_last_target": True},
+    "optimizer": {"learning_rate": 0.0002, "weight_decay": 1.0e-05},
+    "eval_metric": {"name": "BlobsAveragePrecision", "use_last_target": True, "metric": "ap"},
+    "lr_scheduler": {"name": "ReduceLROnPlateau", "mode": "max", "factor": 0.2, "patience": 30},
+}
+DSB_BATCH, DSB_CROP, DSB_PAD = 32, (256, 256), 64
+# the DSB2018 stage-1 image sizes, two images of each
+DSB_SIZES = [(256, 256), (256, 320), (520, 696), (1024, 1024)] * 2
+# the padded forward against the unpadded one, beyond DSB_MARGIN pixels of the
+# padded edges (the model's receptive field reaches 44 pixels): f32 cuDNN on
+# two shapes, another summation order
+DSB_PAD_TOL, DSB_MARGIN = 1e-4, 64
+# phase 27: the 3D options on the confocal UNet3D whose convs stay 3x3x3 pad 1,
+# and the anisotropic conv that leaves the kernels
+OPTIONS_3D = {"trilinear": {"upsample": "trilinear"}, "deconv": {"upsample": "deconv"},
+              "upscale1": {"conv_upscale": 1}}
+ANISOTROPIC_3D = {"conv_kernel_size": [1, 3, 3], "conv_padding": [0, 1, 1]}
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
 # bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -1502,6 +1569,394 @@ def recipe_phases(device, volume, batches):
     return launches
 
 
+def grads_of_step(model, criterion, inp, target, dtype=torch.float32):
+    """Parameter gradients of one loss step of `model` on (inp, target), float64."""
+    model.zero_grad(set_to_none=True)
+    criterion(model(inp.to(dtype))[1], target.to(dtype)).backward()
+    return {name: p.grad.detach().double() for name, p in model.named_parameters()}
+
+
+def worst_rel(grads, reference):
+    """(max |g - ref| / max |ref|, tensor name) over the tensors."""
+    return max(((g - reference[k]).abs().max().item() / max(reference[k].abs().max().item(), 1e-30), k)
+               for k, g in grads.items())
+
+
+def voronoi_planes(rs, planes, hw, cells=60):
+    """(raw (N, 1, 1, H, W), target (N, 2, 1, H, W)) of `planes` depth-1
+    patches as the 2D confocal recipe feeds them: each plane a slice of
+    3D Voronoi cells (~`cells` a plane), its boundary where the 3x3
+    neighbourhood in the plane holds another label, the label appended, and a
+    standardized raw of the boundary plus noise."""
+    from scipy import ndimage
+    from scipy.spatial import cKDTree
+
+    shape = (planes, *hw)
+    seeds = rs.rand(cells * planes, 3) * np.array([planes, *hw], dtype=np.float64)
+    grid = np.stack(np.meshgrid(*(np.arange(s, dtype=np.float32) for s in shape), indexing="ij"), -1)
+    label = cKDTree(seeds).query(grid.reshape(-1, 3), workers=-1)[1].reshape(shape).astype(np.float32) + 1
+    del grid
+    footprint = np.ones((1, 3, 3), dtype=bool)
+    boundary = (ndimage.maximum_filter(label, footprint=footprint, mode="nearest")
+                != ndimage.minimum_filter(label, footprint=footprint, mode="nearest")).astype(np.float32)
+    raw = boundary + 0.5 * rs.randn(*shape).astype(np.float32)
+    raw = (raw - raw.mean()) / raw.std()
+    return raw[:, None, None].astype(np.float32), np.stack([boundary, label], axis=1)[:, :, None]
+
+
+def blob_images(rs, n, hw, blobs=25):
+    """(raw (n, 1, 1, H, W), label (n, H, W)) of DSB2018-like images: discs of
+    radius 4-12 with ids 1..blobs on noise, the raw standardized per image."""
+    yy, xx = np.mgrid[: hw[0], : hw[1]]
+    labels = np.zeros((n, *hw), dtype=np.int64)
+    for i in range(n):
+        for j in range(1, blobs + 1):
+            cy, cx, r = rs.randint(0, hw[0]), rs.randint(0, hw[1]), rs.randint(4, 13)
+            labels[i][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = j
+    raw = (labels > 0) + 0.6 * rs.randn(n, *hw)
+    raw = (raw - raw.mean((1, 2), keepdims=True)) / raw.std((1, 2), keepdims=True)
+    return raw[:, None, None].astype(np.float32), labels
+
+
+def two_d_phases(device, smi):
+    """Phases 24-26: the 2D confocal configs (train at batch 32 of 1 x 515 x
+    512, predict a 64 x 1024 x 1024 stack) and the DSB2018 configs (train,
+    per-image prediction) at full width. No 2D path runs a hand kernel: the
+    JAX package computes 2D convs outside Pallas, so here they are cuDNN's.
+    Returns the launches of each path by kernel and dtype."""
+    from scipy import ndimage
+
+    from pytorch3dunet_tpu_torch.augment.transforms import BlobsToMask, Relabel
+    from pytorch3dunet_tpu_torch.datasets.utils import calculate_stats, mirror_pad
+    from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d
+    from pytorch3dunet_tpu_torch.predictor import (DeviceSlidingWindowPredictor, DSB2018Predictor,
+                                                   StandardPredictor, pmaps_to_segmentation)
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+
+    launches = {}
+    gen_cpu = torch.Generator().manual_seed(SEED + 24)
+
+    def fit(config, train, val, path, tag):
+        """create_trainer on in-memory batches: 4 steps and 1 validation; the
+        losses, the fit's time, its peak memory, 0 launches of every kernel."""
+        with tempfile.TemporaryDirectory() as checkpoint_dir:
+            config = {**config, "trainer": {**config["trainer"], "checkpoint_dir": checkpoint_dir}}
+            trainer = create_trainer(config, loaders={"train": [train], "val": [val]})
+            criterion, losses = trainer.loss_criterion, []
+
+            def recording(logits, target):
+                loss = criterion(logits, target)
+                if torch.is_grad_enabled():
+                    losses.append(loss.item())
+                return loss
+
+            trainer.loss_criterion = recording
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            count_launches(launches, path, trainer.fit)
+            fit_s = time.perf_counter() - start
+            trainer.loss_criterion = criterion
+            check(Path(checkpoint_dir, "last_checkpoint.pytorch").exists(), f"{path}: no checkpoint written")
+        expect_launches(launches, path)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[{tag}] create_trainer fit: 4 steps of {train[0].shape} + 1 validation in {fit_s:.2f} s, peak "
+            f"{peak:.2f} GiB; losses {', '.join(f'{v:.5f}' for v in losses)}; best {trainer.best_eval_score:.5f}; "
+            f"launches {launches[path]} (no hand kernel on a 2D path)")
+        check(len(losses) == 4 and all(math.isfinite(v) for v in losses), f"{path}: losses {losses}")
+        return trainer, criterion
+
+    def trainer_config(model, sections, higher_is_better):
+        return {"manual_seed": SEED, "device": str(device), "model": dict(model), **copy.deepcopy(sections),
+                "trainer": {"eval_score_higher_is_better": higher_is_better, "validate_after_iters": 4,
+                            "log_after_iters": 10**9, "max_num_epochs": 10**9, "max_num_iterations": 3}}
+
+    # 24. the 2D confocal train config: batch 32 of 1 x 515 x 512
+    rs = np.random.RandomState(SEED + 24)
+    start = time.perf_counter()
+    train, val = (voronoi_planes(rs, BATCH_2D, PATCH_2D[1:]) for _ in range(2))
+    log(f"[24 train 2D] two synthetic batches (raw {train[0].shape}, target {train[1].shape}) in "
+        f"{time.perf_counter() - start:.1f} s; the reckoned peak: ~0.75 GB of saved activations an image, "
+        f"24-35 GiB at batch {BATCH_2D}")
+    trainer, criterion = fit(trainer_config(MODEL_2D, TRAIN_SECTIONS, False), train, val, "unet2d_train",
+                             "24 train 2D")
+    model = trainer.model
+    check(is_model_2d(model), "the 2D config built a 3D model")
+    inp, tgt = trainer._prepare_batch(*train)
+    check(inp.shape == (BATCH_2D, 1, *PATCH_2D[1:]) and tgt.shape == (BATCH_2D, 2, *PATCH_2D[1:]),
+          f"the 2D batch on the card is {tuple(inp.shape)}, {tuple(tgt.shape)}")
+    # the gradient gate: cuDNN's f32 step against float64 on 4 of the patches,
+    # deterministic algorithms, random GroupNorm affines (as phase 7)
+    randomize_group_norms(model, gen_cpu)
+    torch.backends.cudnn.deterministic = True
+    try:
+        x4, y4 = inp[:GRAD64_PATCHES_2D], tgt[:GRAD64_PATCHES_2D]
+        grads = grads_of_step(model, criterion, x4, y4)
+        grads64 = grads_of_step(copy.deepcopy(model).double(), criterion, x4, y4, torch.float64)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # no hand kernel runs here: the f32 step is cuDNN's own, which sat 7.8e-4
+    # and 1.1e-3 of a deep conv's own max|g| from float64 in two processes on
+    # the card, so each tensor is held to GRAD_TOL of the step's largest
+    # gradient and to VS_PLAIN_CAP of its own
+    g_max = max(g.abs().max().item() for g in grads64.values())
+    worst = max(((g - grads64[k]).abs().max().item() / g_max, k) for k, g in grads.items())
+    worst_own = worst_rel(grads, grads64)
+    log(f"[24 train 2D] one step's parameter grads on {GRAD64_PATCHES_2D} patches against a float64 step, worst over "
+        f"{len(grads)} tensors: max|d| / the step's max|g| {worst[0]:.3e} ({worst[1]}, tol {GRAD_TOL}); max|d| / "
+        f"the tensor's own max|g| {worst_own[0]:.3e} ({worst_own[1]}, cap {VS_PLAIN_CAP})")
+    check(worst[0] <= GRAD_TOL and worst_own[0] <= VS_PLAIN_CAP,
+          f"the 2D step's grads differ from float64: {worst}, {worst_own}")
+    del grads, grads64
+    optimizer = trainer.optimizer
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        criterion(model(inp)[1], tgt).backward()
+        optimizer.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = count_launches(launches, "unet2d_train_step", lambda: timed_ms(step))
+    expect_launches(launches, "unet2d_train_step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pixels = BATCH_2D * np.prod(PATCH_2D)
+    log(f"[24 train 2D step] batch {BATCH_2D} x {PATCH_2D}, BCEDice, Adam, f32 (TF32 off): {step_ms:.2f} ms "
+        f"({pixels / step_ms / 1e3:.3f} Mpixel/s), peak {peak:.2f} GiB ({smi})")
+    profile_step(step, step_ms, top=10, tag="24 profile", what="one 2D confocal train step")
+    state_2d = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del trainer, model, optimizer, inp, tgt, train, val, step
+    torch.cuda.empty_cache()
+
+    # 25. the 2D confocal test config on a 64 x 1024 x 1024 stack
+    model = get_model(MODEL_2D)
+    model.load_state_dict(state_2d)
+    model = model.to(device).eval()
+    zz, yy, xx = (np.linspace(0, 6 * np.pi, s, dtype=np.float32) for s in VOLUME_2D)
+    volume = (np.sin(zz)[:, None, None] * np.cos(yy)[None, :, None] * np.sin(xx)[None, None, :]
+              + 0.5 * rs.rand(*VOLUME_2D).astype(np.float32)).astype(np.float32)
+    stats = {"mean": float(volume.mean()), "std": float(volume.std())}
+    grid = DeviceSlidingWindowPredictor(model, None, 1, device)
+    patch, halo = PATCH_2D_TEST, HALO_2D
+
+    def grid_sweep():
+        return grid.predict_array(volume, patch, patch, halo, normalize="standardize", stats=stats)
+
+    out = count_launches(launches, "unet2d_device_sweep", grid_sweep)
+    expect_launches(launches, "unet2d_device_sweep")
+    (sweep_obj,) = grid._sweeps.values()
+    check(sweep_obj.patch_batch == 16 and out.shape == (1, *VOLUME_2D) and np.isfinite(out).all(),
+          f"2D sweep: patch_batch {sweep_obj.patch_batch}, output {out.shape}")
+    head = volume[:16]
+    head_stats = calculate_stats(head)
+    host = StandardPredictor(model, None, 1, device).predict_array(head, patch, patch, halo, TRANSFORMER)
+    dev = grid.predict_array(head, patch, patch, halo, normalize="standardize", stats=head_stats)
+    err_host = np.abs(dev - host).max()
+    log(f"[25 predict 2D] the grid sweep of {VOLUME_2D} ({VOLUME_2D[0] * 4} patches of {patch}, halo {halo}, 16 a "
+        f"forward): launches {launches['unet2d_device_sweep']}; on the first 16 planes against the host loop "
+        f"max|d| {err_host:.3e} (tol {SWEEP_2D_TOL})")
+    check(err_host <= SWEEP_2D_TOL, f"the 2D device sweep differs from the host loop by {err_host}")
+    slab = DeviceSlidingWindowPredictor(model, None, 1, device, patch_mode="slab", max_patch_voxels=SLAB_BUDGET_2D)
+
+    def slab_sweep():
+        return slab.predict_array(volume, patch, patch, halo, normalize="standardize", stats=stats)
+
+    out_slab = count_launches(launches, "unet2d_device_sweep_slab", slab_sweep)
+    expect_launches(launches, "unet2d_device_sweep_slab")
+    check(slab._planned_patch_batch == min(24, VOLUME_2D[0]) and np.isfinite(out_slab).all(),
+          f"the 2D slab plan took {slab._planned_patch_batch} planes a forward")
+    plane = mirror_pad(((volume[:1] - stats["mean"]) / stats["std"]).astype(np.float32), halo)
+    with torch.inference_mode():
+        direct = model(torch.from_numpy(plane[None]).to(device))[0][0, 0, halo[1]:-halo[1], halo[2]:-halo[2]]
+    err_slab = np.abs(out_slab[0, 0] - direct.cpu().numpy()).max()
+    seams = np.abs(out_slab - out)
+    log(f"[25 predict 2D] slab: whole {VOLUME_2D[1]}x{VOLUME_2D[2]} planes, {slab._planned_patch_batch} a forward; "
+        f"plane 0 against its own "
+        f"forward max|d| {err_slab:.3e} (tol {SWEEP_2D_TOL}); against the grid's cores (tile borders and GroupNorm "
+        f"over the whole plane instead of a tile) max|d| {seams.max():.3e}, mean {seams.mean():.3e}")
+    check(err_slab <= SWEEP_2D_TOL, f"a slab plane differs from its own forward by {err_slab}")
+    torch.cuda.reset_peak_memory_stats()
+    grid_ms = timed_ms(grid_sweep, runs=SWEEP_RUNS)
+    grid_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    slab_ms = timed_ms(slab_sweep, runs=SWEEP_RUNS)
+    slab_peak = torch.cuda.max_memory_allocated() / 2**30
+    host_ms = timed_ms(lambda: StandardPredictor(model, None, 1, device).predict_array(head, patch, patch, halo,
+                                                                                          TRANSFORMER), runs=1)
+    voxels = np.prod(VOLUME_2D)
+    log(f"[25 predict 2D] {VOLUME_2D} f32: grid sweep {grid_ms:.2f} ms ({voxels / grid_ms / 1e3:.2f} Mvoxel/s, peak "
+        f"{grid_peak:.2f} GiB) | slab sweep {slab_ms:.2f} ms ({voxels / slab_ms / 1e3:.2f} Mvoxel/s, peak "
+        f"{slab_peak:.2f} GiB) | the host loop on 16 planes {host_ms:.2f} ms "
+        f"({np.prod(head.shape) / host_ms / 1e3:.2f} Mvoxel/s) ({smi})")
+    profile_step(grid_sweep, grid_ms, top=8, tag="25 profile", what="one 2D grid sweep")
+    del grid, slab, out, out_slab, host, dev, sweep_obj, direct
+    torch.cuda.empty_cache()
+    res_model = get_model({**MODEL_2D, "name": "ResidualUNet2D"})
+    check(len(res_model.encoders) == 5 and not res_model.decoders[0].concat
+          and res_model.decoders[0].upsampling is not None, "ResidualUNet2D: 5 levels, deconv and sum joins")
+    randomize_group_norms(res_model, gen_cpu)
+    res_model = res_model.to(device).eval()
+    tiles = torch.randn(16, 1, *(p + 2 * h for p, h in zip(patch[1:], halo[1:])), generator=gen_cpu).to(device)
+
+    def res_forward():
+        with torch.inference_mode():
+            return res_model(tiles)[0]
+
+    probs = count_launches(launches, "resunet2d_forward", res_forward)
+    expect_launches(launches, "resunet2d_forward")
+    check(probs.shape == (16, 1, *tiles.shape[2:]) and torch.isfinite(probs).all().item(),
+          f"ResidualUNet2D output {tuple(probs.shape)}")
+    res_ms = timed_ms(res_forward)
+    log(f"[25 predict 2D] ResidualUNet2D (5 levels, deconv, sum joins) forward of 16 tiles of {tuple(tiles.shape[2:])}: "
+        f"{res_ms:.2f} ms ({tiles.numel() / res_ms / 1e3:.2f} Mpixel/s), probs in [{probs.min().item():.4f}, "
+        f"{probs.max().item():.4f}] ({smi})")
+    del res_model, tiles, probs, model, volume
+    torch.cuda.empty_cache()
+
+    # 26. DSB2018: train at batch 32 of 256 x 256 crops, then predict 8 images
+    rs = np.random.RandomState(SEED + 26)
+
+    def dsb_batch():
+        raw, labels = blob_images(rs, DSB_BATCH, DSB_CROP)
+        relabel, to_mask = Relabel(), BlobsToMask(append_label=True)
+        target = np.stack([to_mask(relabel(label[None])) for label in labels]).astype(np.float32)
+        return raw, target
+
+    train, val = dsb_batch(), dsb_batch()
+    config = trainer_config(DSB_MODEL, DSB_SECTIONS, True)
+    torch.manual_seed(SEED)
+    initial = {k: v.clone() for k, v in get_model(DSB_MODEL).state_dict().items()}
+    trainer, criterion = fit(config, train, val, "dsb_train", "26 DSB train")
+    model = trainer.model
+    # each BatchNorm's running statistics move (the mean of the first, over the
+    # per-image standardized raw, may stay 0)
+    state = model.state_dict()
+    norms = [k[: -len(".running_var")] for k in initial if k.endswith("running_var")]
+    moved = [n for n in norms if any(not torch.equal(state[f"{n}.{s}"].cpu(), initial[f"{n}.{s}"])
+                                     for s in ("running_mean", "running_var"))]
+    check(len(norms) == 10 and moved == norms, f"BatchNorm statistics moved in {len(moved)} of {len(norms)}")
+    inp, tgt = trainer._prepare_batch(*train)
+    optimizer = trainer.optimizer
+
+    def dsb_step():
+        optimizer.zero_grad(set_to_none=True)
+        criterion(model(inp)[1], tgt).backward()
+        optimizer.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    dsb_ms = timed_ms(dsb_step)
+    log(f"[26 DSB train] the running statistics of all {len(norms)} BatchNorms moved; step at batch "
+        f"{DSB_BATCH} x {DSB_CROP}, bcr, f32: {dsb_ms:.2f} ms ({DSB_BATCH * np.prod(DSB_CROP) / dsb_ms / 1e3:.3f} "
+        f"Mpixel/s), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    model.eval()
+    padded, plain = DSB2018Predictor(model, None, 1, device, pad_to_multiple=DSB_PAD), DSB2018Predictor(
+        model, None, 1, device)
+    images = [blob_images(rs, 1, size)[0] for size in DSB_SIZES]
+    results = count_launches(launches, "dsb_predict", lambda: [padded.predict_image(img) for img in images])
+    expect_launches(launches, "dsb_predict")
+    worst_pad, rows = 0.0, []
+    for img, probs in zip(images, results):
+        h, w = img.shape[-2:]
+        check(probs.shape == (1, 1, 1, h, w) and np.isfinite(probs).all(), f"DSB probabilities {probs.shape}")
+        inner = (slice(None), slice(None), slice(None), slice(0, h - DSB_MARGIN if h % DSB_PAD else h),
+                 slice(0, w - DSB_MARGIN if w % DSB_PAD else w))
+        err = np.abs(probs - plain.predict_image(img))[inner].max()
+        worst_pad = max(worst_pad, err)
+        seg = pmaps_to_segmentation(probs[0, 0, 0])
+        ref, n_ref = ndimage.label(probs[0, 0, 0] > 0.5, structure=np.ones((3, 3)))
+        same = (int(seg.max()) == n_ref and np.array_equal(seg > 0, ref > 0)
+                and len(np.unique(np.stack([seg[ref > 0], ref[ref > 0]]), axis=1).T) == n_ref)
+        check(same, f"the segmentation of a {h}x{w} image is not the components of its thresholded probabilities")
+        ms = timed_ms(lambda: padded.predict_image(img), runs=2)
+        rows.append(f"{h}x{w}: {ms:.2f} ms, {n_ref} components")
+    log(f"[26 DSB predict] {len(images)} images, pad_to_multiple {DSB_PAD}: padded against unpadded forward beyond "
+        f"{DSB_MARGIN} px of the padded edges max|d| {worst_pad:.3e} (tol {DSB_PAD_TOL}); segmentations = scipy's "
+        f"8-connected components of probs > 0.5; launches {launches['dsb_predict']}; per image "
+        f"{' | '.join(rows[:len(DSB_SIZES) // 2])} ({smi})")
+    check(worst_pad <= DSB_PAD_TOL, f"the padded DSB forward differs from the unpadded one by {worst_pad}")
+    del trainer, model, optimizer, inp, tgt, padded, plain, results
+    torch.cuda.empty_cache()
+    return launches
+
+
+def options_phase(device, batch, smi):
+    """Phase 27: the 3D model options at the confocal width on phase 7's
+    80 x 170 x 170 batch: upsample trilinear and deconv (DoubleConv, concat
+    joins) and conv_upscale 1 keep every conv 3x3x3 pad 1, so each forward
+    runs 14 K2 and is held to the plain conv; conv_kernel_size [1, 3, 3] runs
+    no hand kernel; one f32 step with trilinear upsampling runs 14 K2 and 14
+    K3 and is held to a float64 step as phase 7's. Returns the launches of
+    each path by kernel and dtype."""
+    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
+
+    launches = {}
+    gen_cpu = torch.Generator().manual_seed(SEED + 27)
+    inp = torch.from_numpy(batch[0]).to(device)
+    target = torch.from_numpy(batch[1]).to(device)
+    rows = []
+    for key, options in {**OPTIONS_3D, "anisotropic": ANISOTROPIC_3D}.items():
+        torch.manual_seed(SEED)
+        model = get_model({**MODEL, **options})
+        randomize_group_norms(model, gen_cpu)
+        model = model.to(device).eval()
+        on_kernels = sum(m.on_kernels for m in model.modules() if hasattr(m, "on_kernels"))
+
+        def forward():
+            with torch.inference_mode():
+                return model(inp)[0]
+
+        path = f"options_{key}_forward"
+        probs = count_launches(launches, path, forward)
+        expect_launches(launches, path, k2=(14 if key != "anisotropic" else 0, 0))
+        check(on_kernels == (14 if key != "anisotropic" else 0) and torch.isfinite(probs).all().item(),
+              f"{key}: {on_kernels} convs on the kernels")
+        with plain_conv():
+            plain = forward()
+            plain_ms = timed_ms(forward)
+        err = (probs - plain).abs().max().item()
+        ms = timed_ms(forward)
+        rows.append(f"{key} {ms:.2f} ms (plain {plain_ms:.2f}, max|d| {err:.2e})")
+        check(err <= FORWARD_TOL, f"{key}: the kernels' forward differs from the plain conv's by {err}")
+        del model, probs, plain
+    log(f"[27 options] forwards of {TRAIN_PATCH}, f_maps {MODEL['f_maps']}, 4 levels: {' | '.join(rows)} "
+        f"(tol {FORWARD_TOL}); "
+        f"launches {', '.join(f'{k}: {v}' for k, v in launches.items())} ({smi})")
+
+    torch.manual_seed(SEED)
+    model = get_model({**MODEL, **OPTIONS_3D["trilinear"]})
+    randomize_group_norms(model, gen_cpu)
+    model = model.to(device).train()
+    criterion = get_loss_criterion({"loss": dict(TRAIN_SECTIONS["loss"])})
+    # phase 13's gate: on this model's level-2 convs the plain f32 step itself
+    # sits 4.6e-3 of max|g| from float64 (first run on the card), past phase
+    # 7's 1e-3, so each tensor's kernel error is held to twice the plain
+    # step's own + RES_GRAD_TOL, on cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = count_launches(launches, "options_trilinear_step", lambda: grads_of_step(model, criterion, inp,
+                                                                                         target))
+        with plain_conv():
+            grads_plain = grads_of_step(model, criterion, inp, target)
+            grads64 = grads_of_step(copy.deepcopy(model).double(), criterion, inp, target, torch.float64)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    expect_launches(launches, "options_trilinear_step", k2=(14, 0), k3=(14, 0))
+    err_k, err_p = ({k: worst_rel({k: g[k]}, grads64)[0] for k in g} for g in (grads, grads_plain))
+    vs_plain = worst_rel(grads, grads_plain)
+    margin = min((2 * err_p[k] + RES_GRAD_TOL - err_k[k], k) for k in grads)
+    log(f"[27 options] trilinear: one f32 step, launches {launches['options_trilinear_step']}; grads against a "
+        f"float64 plain step, worst over {len(grads)} tensors: kernels {max(err_k.values()):.3e} "
+        f"({max(err_k, key=err_k.get)}), plain f32 {max(err_p.values()):.3e} ({max(err_p, key=err_p.get)}); least "
+        f"margin to 2 x plain + {RES_GRAD_TOL}: {margin[0]:.3e} ({margin[1]}); kernels vs plain f32 "
+        f"{vs_plain[0]:.3e} (cap {VS_PLAIN_CAP})")
+    check(margin[0] >= 0, f"the trilinear step's grads: kernels {err_k[margin[1]]} vs plain f32 {err_p[margin[1]]} "
+                          f"from float64 at {margin[1]}")
+    check(vs_plain[0] <= VS_PLAIN_CAP, f"the trilinear step's grads differ from the plain f32 step: {vs_plain}")
+    del model, grads, grads_plain, grads64, inp, target
+    torch.cuda.empty_cache()
+    return launches
+
+
 def synthetic_batch(rs):
     """One (raw, target) batch of the confocal recipe's shape: an instance
     label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
@@ -1889,7 +2344,13 @@ def main():
     # 21-23. the multiclass and denoising recipes
     recipes = recipe_phases(device, volume, (train_batch, val_batch))
 
-    by_path_dtype = {**sweep["launches"], **bf16, **recipes}
+    # 24-26. the 2D families: the 2D confocal and DSB2018 configs
+    two_d = two_d_phases(device, smi)
+
+    # 27. the 3D model options at the confocal width
+    options = options_phase(device, train_batch, smi)
+
+    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}

@@ -18,12 +18,9 @@ import numpy as np
 from scipy.ndimage import zoom
 
 from pytorch3dunet_tpu_torch.datasets.loader import ConcatDataset, DataLoader
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, get_class, get_logger, not_ported
+from pytorch3dunet_tpu_torch.utils.misc import get_class, get_logger
 
 logger = get_logger("Dataset")
-
-# dataset classes of the JAX package that the port does not have yet, with their ROADMAP item
-_NOT_PORTED = {"DSB2018Dataset": ITEM_2D}
 
 
 class ConfigDataset:
@@ -248,9 +245,8 @@ def _dataset_class(loaders_config: dict):
     if dataset_cls_str is None:
         dataset_cls_str = "StandardHDF5Dataset"
         logger.warning(f"Cannot find dataset class in the config. Using default '{dataset_cls_str}'.")
-    if dataset_cls_str in _NOT_PORTED:
-        raise not_ported(dataset_cls_str, _NOT_PORTED[dataset_cls_str])
     return get_class(dataset_cls_str, modules=["pytorch3dunet_tpu_torch.datasets.hdf5",
+                                                "pytorch3dunet_tpu_torch.datasets.dsb",
                                                 "pytorch3dunet_tpu_torch.datasets.utils"])
 
 

@@ -18,6 +18,11 @@ Layout: the port is channels-first. The padded volume is (Dp, Hp, Wp) or
 channels-first (C, Dp, Hp, Wp); the output is (Cout, D, H, W), where the JAX
 sweep returns channels-last (D, H, W, Cout).
 
+A 2D model sweeps the same (z, y, x) grid with depth-1 patches and no z halo:
+the patches of a batch, without their z, are the model's batch, and its
+probabilities get their z back before the crop (JAX inference_device.py:95-101,
+:218-245).
+
 Normalization: the common test-transformer pipelines run on the device --
 `Standardize` with volume statistics (global_normalization) or per-patch
 statistics, min-max `Normalize`, and per-patch `PercentileNormalizer`
@@ -30,6 +35,7 @@ The JAX package's sharded sweeps (`mesh`, `spatial_mesh`) are not ported
 import numpy as np
 import torch
 
+from pytorch3dunet_tpu_torch.models.unet import is_model_2d
 from pytorch3dunet_tpu_torch.ops.tta import flip_combos, patch_axes_to_array_axes, tta_average
 from pytorch3dunet_tpu_torch.utils.misc import ITEM_PARALLELISM, get_logger, not_ported
 
@@ -63,7 +69,7 @@ class DeviceSlidingWindow:
     """Sliding-window sweep for one (model, patch grid) setup on the model's device.
 
     Args:
-        model: one of the port's 3D models, in eval mode, on its device.
+        model: one of the port's models, in eval mode, on its device.
         patch_shape: core patch shape (D, H, W) from the slice builder.
         halo_shape: halo on each side; the network sees patch + 2*halo.
         normalize: 'standardize' | 'standardize_patch' | 'normalize' |
@@ -77,7 +83,7 @@ class DeviceSlidingWindow:
             shapes static: the same result).
         tta_axes: patch-space (z, y, x) axes for mirror-flip test-time
             augmentation; every flip combination is forwarded and the
-            probabilities averaged. Empty = off.
+            probabilities averaged. Empty = off. A 2D model cannot mirror z.
     """
 
     def __init__(self, model, patch_shape, halo_shape, normalize=None, stats=None, blend="assign", mesh=None,
@@ -90,11 +96,16 @@ class DeviceSlidingWindow:
         self.patch_shape = tuple(int(p) for p in patch_shape)
         self.halo_shape = tuple(int(h) for h in halo_shape)
         self.patch_batch = max(1, int(patch_batch))
+        self.is_2d = is_model_2d(model)
+        if self.is_2d and (self.patch_shape[0] != 1 or self.halo_shape[0] != 0):
+            raise ValueError(f"a 2D model sweeps patches of depth 1 with no z halo, got patch {self.patch_shape} "
+                             f"and halo {self.halo_shape}")
+        if self.is_2d and 0 in tta_axes:
+            raise ValueError("a 2D model cannot mirror the z axis")
         self.normalize = normalize
         self.stats = stats or {}
         self.blend = blend
-        # patch axis k is axis k + 2 of the (N, C, D, H, W) batch
-        self.tta_combos = flip_combos(patch_axes_to_array_axes(tta_axes)) if tta_axes else []
+        self.tta_combos = flip_combos(patch_axes_to_array_axes(tta_axes, self.is_2d)) if tta_axes else []
 
     @property
     def device(self) -> torch.device:
@@ -130,7 +141,8 @@ class DeviceSlidingWindow:
         return patch
 
     def _apply_model(self, x):
-        """Model-ready (N, C, D, H, W) batch -> float32 probabilities; mirror-TTA-averaged when on."""
+        """Model-ready (N, C, D, H, W) batch, or (N, C, H, W) for a 2D model,
+        -> float32 probabilities; mirror-TTA-averaged when on."""
 
         def run(xi):
             return self.model(xi)[0]
@@ -147,7 +159,11 @@ class DeviceSlidingWindow:
         pz, py, px = cz + 2 * hz, cy + 2 * hy, cx + 2 * hx
         patches = [self._normalize_patch(padded_volume[:, z : z + pz, y : y + py, x : x + px], stats)
                    for z, y, x in starts_b]
-        probs = self._apply_model(torch.stack(patches))
+        batch = torch.stack(patches)
+        if self.is_2d:
+            probs = self._apply_model(batch[:, :, 0])[:, :, None]
+        else:
+            probs = self._apply_model(batch)
         return probs[:, :, hz : hz + cz, hy : hy + cy, hx : hx + cx].float()
 
     def _accumulate(self, padded_volume, starts, stats):

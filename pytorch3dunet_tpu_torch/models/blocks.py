@@ -1,18 +1,24 @@
-"""U-Net building blocks as torch modules (NCDHW).
+"""U-Net building blocks as torch modules (NCDHW, or NCHW in 2D).
 
 Counterparts of pytorch3dunet_tpu/models/blocks.py: SingleConv, DoubleConv,
-ResNetBlock, ResNetBlockSE, Encoder, Decoder (nearest or deconv upsampling,
-concat or sum joins). Module names follow the reference pytorch-3dunet, so
-state-dict keys are the reference's (`SingleConv1.groupnorm.weight`,
-`conv2.conv.weight`, `upsampling.upsample.conv_transposed.weight`, ...), the
-keys that the JAX package's torch interop reads and writes.
+ResNetBlock, ResNetBlockSE, Encoder, Decoder (nearest, linear, area or deconv
+upsampling, or none; concat or sum joins). Module names follow the reference
+pytorch-3dunet, so state-dict keys are the reference's
+(`SingleConv1.groupnorm.weight`, `conv2.conv.weight`,
+`upsampling.upsample.conv_transposed.weight`, ...), the keys that the JAX
+package's torch interop reads and writes.
+
+The blocks are rank-generic, as the JAX blocks are through `spatial_rank`:
+`is3d=False` builds the 2D families' Conv2d, BatchNorm2d, Dropout2d, 2D
+max-pool and ConvTranspose2d. The conv kernel size and padding are ints or
+per-axis tuples.
 
 The `layer_order` string composes each conv unit: 'c' conv, 'g' GroupNorm,
 'b' BatchNorm, 'r' ReLU, 'l' LeakyReLU, 'e' ELU, 'd' dropout, 'D' channel
 dropout. The blocks train and predict: in `train()` BatchNorm uses batch
 statistics and dropout draws masks, in `eval()` running statistics and the
-identity. Every backward but the conv's (ops/conv3d.py `Conv3dFunction`) is
-torch's own.
+identity. Every backward but the 3x3x3 conv's (ops/conv3d.py
+`Conv3dFunction`) is torch's own.
 
 Each layer computes in its input's dtype with its float32 parameters cast to
 it, except the norms, which compute in float32 on a float32 copy of a bfloat16
@@ -24,8 +30,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.models.se import ChannelSpatialSELayer3D
-from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, cast_to
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, not_ported
+from pytorch3dunet_tpu_torch.ops.conv3d import Conv2d, Conv3d, cast_to
+
+# the upsample modes of a Decoder (JAX unet.py `_resolve_upsample`); None: no resize
+UPSAMPLE_MODES = ("nearest", "linear", "bilinear", "trilinear", "area", "deconv", None)
 
 
 class _Float32Norm:
@@ -46,6 +54,25 @@ class BatchNorm3d(_Float32Norm, nn.BatchNorm3d):
     pass
 
 
+class BatchNorm2d(_Float32Norm, nn.BatchNorm2d):
+    pass
+
+
+def _per_axis(value, rank: int) -> tuple:
+    """An int or a per-axis sequence as a `rank`-tuple (JAX blocks.py `_to_tuple`)."""
+    if isinstance(value, (list, tuple)):
+        if len(value) != rank:
+            raise ValueError(f"Expected an int or a length-{rank} sequence, got {tuple(value)}")
+        return tuple(int(v) for v in value)
+    return (int(value),) * rank
+
+
+def conv_layer(in_channels: int, out_channels: int, kernel_size, padding, bias: bool = True, is3d: bool = True):
+    """The conv of a 3D (`Conv3d`: the kernels for 3x3x3 pad 1) or 2D
+    (`Conv2d`) block."""
+    return (Conv3d if is3d else Conv2d)(in_channels, out_channels, kernel_size, padding=padding, bias=bias)
+
+
 class SingleConv(nn.Sequential):
     """One conv unit built from `order` (JAX blocks.py:168-259): the conv has
     a bias only when no norm is present; a norm before the conv normalizes
@@ -53,7 +80,7 @@ class SingleConv(nn.Sequential):
     when there are fewer channels than groups."""
 
     def __init__(self, in_channels: int, out_channels: int, order: str = "gcr", num_groups: int = 8,
-                 dropout_prob: float = 0.1):
+                 dropout_prob: float = 0.1, kernel_size=3, padding=1, is3d: bool = True):
         super().__init__()
         assert "c" in order, "Conv layer MUST be present"
         assert order[0] not in "rle", "Non-linearity cannot be the first operation in the layer"
@@ -68,7 +95,7 @@ class SingleConv(nn.Sequential):
             elif char == "e":
                 self.add_module("ELU", nn.ELU(inplace=True))
             elif char == "c":
-                self.add_module("conv", Conv3d(in_channels, out_channels, 3, padding=1, bias=use_bias))
+                self.add_module("conv", conv_layer(in_channels, out_channels, kernel_size, padding, use_bias, is3d))
             elif char == "g":
                 groups = 1 if channels < num_groups else num_groups
                 assert channels % groups == 0, (
@@ -77,11 +104,14 @@ class SingleConv(nn.Sequential):
                 )
                 self.add_module("groupnorm", GroupNorm(groups, channels, eps=1e-5))
             elif char == "b":
-                self.add_module("batchnorm", BatchNorm3d(channels, eps=1e-5))
+                self.add_module("batchnorm", (BatchNorm3d if is3d else BatchNorm2d)(channels, eps=1e-5))
             elif char == "d":
                 self.add_module("dropout", nn.Dropout(p=dropout_prob))
             elif char == "D":
-                self.add_module("dropout3d", nn.Dropout3d(p=dropout_prob))
+                if is3d:
+                    self.add_module("dropout3d", nn.Dropout3d(p=dropout_prob))
+                else:
+                    self.add_module("dropout2d", nn.Dropout2d(p=dropout_prob))
             else:
                 raise ValueError(
                     f"Unsupported layer type '{char}'. MUST be one of ['b', 'g', 'r', 'l', 'e', 'c', 'd', 'D']"
@@ -90,16 +120,21 @@ class SingleConv(nn.Sequential):
 
 class DoubleConv(nn.Module):
     """Two conv units with the reference channel schedule (JAX blocks.py:262-305):
-    in an encoder conv1 goes to out_channels // 2 (floored at in_channels),
-    in a decoder to out_channels."""
+    in an encoder conv1 goes to out_channels // 2 (to out_channels when
+    `upscale` is 1), floored at in_channels; in a decoder to out_channels."""
 
     def __init__(self, in_channels: int, out_channels: int, encoder: bool, order: str = "gcr",
-                 num_groups: int = 8, dropout_prob: float | tuple = 0.1):
+                 num_groups: int = 8, dropout_prob: float | tuple = 0.1, kernel_size=3, padding=1,
+                 upscale: int = 2, is3d: bool = True):
         super().__init__()
-        conv1_out = max(out_channels // 2, in_channels) if encoder else out_channels
+        if encoder:
+            conv1_out = max(out_channels if upscale == 1 else out_channels // 2, in_channels)
+        else:
+            conv1_out = out_channels
         dropout1, dropout2 = dropout_prob if isinstance(dropout_prob, (list, tuple)) else (dropout_prob,) * 2
-        self.SingleConv1 = SingleConv(in_channels, conv1_out, order, num_groups, dropout1)
-        self.SingleConv2 = SingleConv(conv1_out, out_channels, order, num_groups, dropout2)
+        common = dict(order=order, num_groups=num_groups, kernel_size=kernel_size, padding=padding, is3d=is3d)
+        self.SingleConv1 = SingleConv(in_channels, conv1_out, dropout_prob=dropout1, **common)
+        self.SingleConv2 = SingleConv(conv1_out, out_channels, dropout_prob=dropout2, **common)
 
     def forward(self, x):
         return self.SingleConv2(self.SingleConv1(x))
@@ -110,14 +145,18 @@ class ResNetBlock(nn.Module):
     arXiv:1706.00120): a 1x1 projection `conv1` with bias when the channel
     count changes, `conv2` a conv unit of `order`, `conv3` one of `order`
     without its non-linearity, the residual sum, then ReLU, ELU or LeakyReLU
-    with slope 0.1, as `order` names."""
+    with slope 0.1, as `order` names. Each axis is padded by (k - 1) // 2 of
+    its kernel size, whatever the model's `conv_padding` (as in JAX)."""
 
-    def __init__(self, in_channels: int, out_channels: int, order: str = "cge", num_groups: int = 8):
+    def __init__(self, in_channels: int, out_channels: int, order: str = "cge", num_groups: int = 8,
+                 kernel_size=3, is3d: bool = True):
         super().__init__()
-        self.conv1 = (Conv3d(in_channels, out_channels, kernel_size=1, padding=0) if in_channels != out_channels
+        self.conv1 = (conv_layer(in_channels, out_channels, 1, 0, is3d=is3d) if in_channels != out_channels
                       else nn.Identity())
-        self.conv2 = SingleConv(out_channels, out_channels, order, num_groups)
-        self.conv3 = SingleConv(out_channels, out_channels, "".join(c for c in order if c not in "rel"), num_groups)
+        padding = tuple((k - 1) // 2 for k in _per_axis(kernel_size, 3 if is3d else 2))
+        common = dict(num_groups=num_groups, kernel_size=kernel_size, padding=padding, is3d=is3d)
+        self.conv2 = SingleConv(out_channels, out_channels, order, **common)
+        self.conv3 = SingleConv(out_channels, out_channels, "".join(c for c in order if c not in "rel"), **common)
         if "l" in order:
             self.non_linearity = nn.LeakyReLU(negative_slope=0.1, inplace=True)
         elif "e" in order:
@@ -133,10 +172,12 @@ class ResNetBlock(nn.Module):
 class ResNetBlockSE(ResNetBlock):
     """ResNetBlock followed by a concurrent spatial and channel SE module with
     reduction ratio 1 (JAX blocks.py:371-403, whose 'scse' default is the only
-    value any model sets)."""
+    value any model sets). 3D only, as the only family that uses it."""
 
-    def __init__(self, in_channels: int, out_channels: int, order: str = "cge", num_groups: int = 8):
-        super().__init__(in_channels, out_channels, order, num_groups)
+    def __init__(self, in_channels: int, out_channels: int, order: str = "cge", num_groups: int = 8,
+                 kernel_size=3, is3d: bool = True):
+        assert is3d, "ResNetBlockSE is a 3D block"
+        super().__init__(in_channels, out_channels, order, num_groups, kernel_size)
         self.se_module = ChannelSpatialSELayer3D(out_channels, reduction_ratio=1)
 
     def forward(self, x):
@@ -144,60 +185,91 @@ class ResNetBlockSE(ResNetBlock):
 
 
 def make_basic_module(basic_module: str, in_channels: int, out_channels: int, encoder: bool, order: str,
-                      num_groups: int, dropout_prob):
+                      num_groups: int, dropout_prob, kernel_size=3, padding=1, upscale: int = 2, is3d: bool = True):
     """The basic module named by a model family (JAX blocks.py:584-609): the
-    ResNet blocks take no encoder schedule and no dropout probability."""
+    ResNet blocks take no encoder schedule, padding, upscale or dropout
+    probability."""
     if basic_module == "DoubleConv":
-        return DoubleConv(in_channels, out_channels, encoder, order, num_groups, dropout_prob)
+        return DoubleConv(in_channels, out_channels, encoder, order, num_groups, dropout_prob, kernel_size, padding,
+                          upscale, is3d)
     if basic_module == "ResNetBlock":
-        return ResNetBlock(in_channels, out_channels, order, num_groups)
+        return ResNetBlock(in_channels, out_channels, order, num_groups, kernel_size, is3d)
     if basic_module == "ResNetBlockSE":
-        return ResNetBlockSE(in_channels, out_channels, order, num_groups)
+        return ResNetBlockSE(in_channels, out_channels, order, num_groups, kernel_size, is3d)
     raise ValueError(f"Unknown basic module {basic_module!r}")
 
 
 class Encoder(nn.Module):
-    """Optional 2x2x2 max-pool (floor semantics, as JAX ops/pool.py) then a
-    basic module; level 0 does not pool."""
+    """Optional max-pool with stride = window (`pool_kernel_size`, an int or
+    per-axis tuple; floor semantics, as JAX ops/pool.py) then a basic module;
+    level 0 does not pool."""
 
     def __init__(self, in_channels: int, out_channels: int, apply_pooling: bool, pool_kernel_size=2,
-                 order: str = "gcr", num_groups: int = 8, dropout_prob=0.1, basic_module: str = "DoubleConv"):
+                 order: str = "gcr", num_groups: int = 8, dropout_prob=0.1, basic_module: str = "DoubleConv",
+                 conv_kernel_size=3, padding=1, upscale: int = 2, is3d: bool = True):
         super().__init__()
-        self.pool_kernel_size = pool_kernel_size if apply_pooling else None
+        self.pool_kernel_size = _per_axis(pool_kernel_size, 3 if is3d else 2) if apply_pooling else None
         self.basic_module = make_basic_module(basic_module, in_channels, out_channels, True, order, num_groups,
-                                              dropout_prob)
+                                              dropout_prob, conv_kernel_size, padding, upscale, is3d)
 
     def forward(self, x):
         if self.pool_kernel_size is not None:
-            x = F.max_pool3d(x, self.pool_kernel_size, stride=self.pool_kernel_size)
+            pool = F.max_pool3d if x.ndim == 5 else F.max_pool2d
+            x = pool(x, self.pool_kernel_size, stride=self.pool_kernel_size)
         return self.basic_module(x)
 
 
 class TransposeConvUpsampling(nn.Module):
-    """`upsample.conv_transposed`, a ConvTranspose3d with kernel 3, stride 2,
-    padding 1 and no bias (2n-1 voxels from n), then a nearest resize to the
-    skip's size: the reference's module and keys, and the function of JAX
-    blocks.py:786-797 (`phase_conv_transpose` + `resize_spatial`). The JAX
-    package computes this transposed conv outside any Pallas kernel; here it is
-    cuDNN's."""
+    """`upsample.conv_transposed`, a ConvTranspose3d (ConvTranspose2d in 2D)
+    with kernel `kernel_size`, stride `scale_factor` and no bias, then a
+    nearest resize to the skip's size: the reference's module and keys, and
+    the function of JAX blocks.py:736-810 (`phase_conv_transpose` for kernel 3
+    / stride 2 in 3D, flax `ConvTranspose` with padding (1, 1) on every axis
+    otherwise; both give 2n - 1 voxels from n at kernel 3 / stride 2). The JAX
+    package computes this transposed conv outside any Pallas kernel; here it
+    is cuDNN's."""
 
     class Upsample(nn.Module):
-        def __init__(self, in_channels: int, out_channels: int):
+        def __init__(self, in_channels: int, out_channels: int, kernel_size=3, scale_factor=2, is3d: bool = True):
             super().__init__()
-            self.conv_transposed = nn.ConvTranspose3d(in_channels, out_channels, kernel_size=3, stride=2, padding=1,
-                                                      bias=False)
+            deconv = nn.ConvTranspose3d if is3d else nn.ConvTranspose2d
+            self.conv_transposed = deconv(in_channels, out_channels, kernel_size=kernel_size, stride=scale_factor,
+                                          padding=1, bias=False)
 
         def forward(self, x, size):
             conv = self.conv_transposed
-            y = F.conv_transpose3d(x, cast_to(conv.weight, x), None, stride=conv.stride, padding=conv.padding)
+            # flax pads the stride-dilated input by (1, 1) on each axis: torch's
+            # padding k - 2 for k >= 2; at k = 1 the output gains a zero on each side
+            padding = tuple(max(k - 2, 0) for k in conv.kernel_size)
+            transposed = F.conv_transpose3d if x.ndim == 5 else F.conv_transpose2d
+            y = transposed(x, cast_to(conv.weight, x), None, stride=conv.stride, padding=padding)
+            zeros = [p for k in reversed(conv.kernel_size) for p in (int(k == 1),) * 2]
+            if any(zeros):
+                y = F.pad(y, zeros)
             return F.interpolate(y, size=size, mode="nearest")
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3, scale_factor=2, is3d: bool = True):
         super().__init__()
-        self.upsample = self.Upsample(in_channels, out_channels)
+        self.upsample = self.Upsample(in_channels, out_channels, kernel_size, scale_factor, is3d)
 
     def forward(self, x, size):
         return self.upsample(x, size)
+
+
+def resize(x, size, mode: str):
+    """x resized to the spatial `size` (JAX ops/interp.py `resize_spatial`):
+    unchanged when it has that size already. 'nearest' is F.interpolate's
+    index rule floor(i * in / out), which JAX `_nearest_resize` copies.
+    'linear', 'bilinear' and 'trilinear' all mean linear interpolation with
+    half-pixel centres (align_corners=False), bilinear or trilinear by x's
+    rank, as JAX maps all three to `jax.image.resize(..., 'linear')`. 'area'
+    is torch's adaptive average pooling, as the reference computes it; JAX
+    resizes linearly there (ROADMAP F3)."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    if mode in ("linear", "bilinear", "trilinear"):
+        return F.interpolate(x, size=size, mode="trilinear" if x.ndim == 5 else "bilinear", align_corners=False)
+    return F.interpolate(x, size=size, mode=mode)
 
 
 class Decoder(nn.Module):
@@ -205,29 +277,33 @@ class Decoder(nn.Module):
     JAX blocks.py:811-843. `in_channels` are x's (the level below),
     `out_channels` the skip's and the block's.
 
-    `upsample_mode` 'nearest' resizes x (F.interpolate's nearest index rule
-    floor(i * in / out) is the one JAX ops/interp.py `_nearest_resize` copies;
-    the JAX package's fused decoder computes the same function); 'deconv' runs
-    `TransposeConvUpsampling` from `in_channels` to `out_channels`. `concat`
-    joins by `cat([skip, x])`, otherwise by the sum `skip + x`."""
+    `upsample_mode` is one of `UPSAMPLE_MODES`: an interpolation (`resize`),
+    'deconv' (`TransposeConvUpsampling` from `in_channels` to `out_channels`
+    with kernel `conv_kernel_size` and stride `scale_factor`), or None, which
+    joins x as it is (it must have the skip's size already, as under
+    `pool_kernel_size: 1`). `concat` joins by `cat([skip, x])`, otherwise by
+    the sum `skip + x`."""
 
     def __init__(self, in_channels: int, out_channels: int, order: str = "gcr", num_groups: int = 8,
-                 dropout_prob=0.1, basic_module: str = "DoubleConv", upsample_mode: str = "nearest",
-                 concat: bool = True):
+                 dropout_prob=0.1, basic_module: str = "DoubleConv", upsample_mode: str | None = "nearest",
+                 concat: bool = True, conv_kernel_size=3, padding=1, scale_factor=2, is3d: bool = True):
         super().__init__()
-        if upsample_mode not in ("nearest", "deconv"):
-            raise not_ported(f"upsample mode {upsample_mode!r}", ITEM_2D)
-        self.upsampling = TransposeConvUpsampling(in_channels, out_channels) if upsample_mode == "deconv" else None
+        if upsample_mode not in UPSAMPLE_MODES:
+            raise ValueError(f"Unknown upsample mode {upsample_mode!r}; expected one of {UPSAMPLE_MODES}")
+        self.upsample_mode = upsample_mode
+        self.upsampling = (TransposeConvUpsampling(in_channels, out_channels, conv_kernel_size, scale_factor, is3d)
+                           if upsample_mode == "deconv" else None)
         upsampled = out_channels if upsample_mode == "deconv" else in_channels
         self.concat = concat
         self.basic_module = make_basic_module(basic_module, out_channels + upsampled if concat else upsampled,
-                                              out_channels, False, order, num_groups, dropout_prob)
+                                              out_channels, False, order, num_groups, dropout_prob,
+                                              conv_kernel_size, padding, 2, is3d)
 
     def forward(self, encoder_features, x):
         size = encoder_features.shape[2:]
         if self.upsampling is not None:
             x = self.upsampling(x, size)
-        else:
-            x = F.interpolate(x, size=size, mode="nearest")
+        elif self.upsample_mode is not None:
+            x = resize(x, size, self.upsample_mode)
         x = torch.cat([encoder_features, x], dim=1) if self.concat else encoder_features + x
         return self.basic_module(x)

@@ -1,5 +1,8 @@
-"""The 3D U-Net families as torch modules (NCDHW), the counterparts of
-pytorch3dunet_tpu/models/unet.py: UNet3D, ResidualUNet3D, ResidualUNetSE3D.
+"""The U-Net families as torch modules, the counterparts of
+pytorch3dunet_tpu/models/unet.py: UNet3D, ResidualUNet3D, ResidualUNetSE3D on
+NCDHW tensors, UNet2D and ResidualUNet2D on NCHW tensors (`is3d`,
+`is_model_2d`; the trainer and the predictors strip the singleton z of their
+(N, C, 1, H, W) batches for a 2D model).
 
 `forward` returns `(probs, logits)` like the JAX `UNetModel.apply`: sigmoid or
 softmax over the channel axis for segmentation, the logits twice otherwise.
@@ -15,13 +18,8 @@ back, and the logits come back in float32.
 import torch
 import torch.nn as nn
 
-from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder
-from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, ITEM_TRAINER, not_ported, number_of_features_per_level
-
-# model families of the JAX package that the port does not have yet, with
-# the ROADMAP item that ports them
-_NOT_PORTED = {"UNet2D": ITEM_2D, "ResidualUNet2D": ITEM_2D}
+from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder, conv_layer
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_TRAINER, not_ported, number_of_features_per_level
 
 # `model.dtype` values of the JAX get_model -> the compute dtype (None: float32)
 _DTYPES = {None: None, "float32": None, "fp32": None, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -35,10 +33,13 @@ def compute_dtype(value) -> torch.dtype | None:
     return _DTYPES[value]
 
 
-def _resolve_upsample(upsample: str, basic_module: str) -> tuple[str, bool]:
-    """('default' | mode) -> (mode, concat), as JAX unet.py:37-47: 'default' is
-    nearest with concat joins for DoubleConv, deconv with sum joins for the
-    ResNet blocks; a named mode joins by concat."""
+def _resolve_upsample(upsample, basic_module: str) -> tuple[str | None, bool]:
+    """('default' | mode | None | 'none') -> (mode, concat), as JAX
+    unet.py:37-47: 'default' is nearest with concat joins for DoubleConv,
+    deconv with sum joins for the ResNet blocks; a named mode joins by concat;
+    None and 'none' do not resize and join by concat."""
+    if upsample is None or upsample == "none":
+        return None, True
     if upsample == "default":
         return ("nearest", True) if basic_module == "DoubleConv" else ("deconv", False)
     return upsample, True
@@ -47,15 +48,18 @@ def _resolve_upsample(upsample: str, basic_module: str) -> tuple[str, bool]:
 class UNet3D(nn.Module):
     """3D U-Net (Cicek et al., arXiv:1606.06650): DoubleConv blocks, max-pool
     down, nearest up, concat joins, a 1x1 final conv. The subclasses change the
-    basic module and the default depth."""
+    basic module, the rank and the default depth. `conv_kernel_size` and
+    `conv_padding` (ints or per-axis tuples) and `conv_upscale` reach every
+    block as in JAX unet.py `UNetModule`."""
 
     basic_module = "DoubleConv"
+    is3d = True
     default_num_levels = 4
 
     def __init__(self, in_channels: int, out_channels: int, final_sigmoid: bool = True, f_maps=64,
                  layer_order: str = "gcr", num_groups: int = 8, num_levels: int | None = None,
-                 is_segmentation: bool = True, pool_kernel_size=2, dropout_prob=0.1, upsample: str = "default",
-                 dtype=None):
+                 is_segmentation: bool = True, conv_kernel_size=3, pool_kernel_size=2, conv_padding=1,
+                 conv_upscale: int = 2, dropout_prob=0.1, upsample="default", dtype=None):
         super().__init__()
         if isinstance(f_maps, int):
             f_maps = number_of_features_per_level(f_maps, num_levels=num_levels or self.default_num_levels)
@@ -66,21 +70,21 @@ class UNet3D(nn.Module):
         # bfloat16 or None (float32); the parameters stay float32 either way
         self.compute_dtype = compute_dtype(dtype)
 
+        common = dict(order=layer_order, num_groups=num_groups, dropout_prob=dropout_prob,
+                      basic_module=self.basic_module, conv_kernel_size=conv_kernel_size, padding=conv_padding,
+                      is3d=self.is3d)
         self.encoders = nn.ModuleList()
         for i, out_feature_num in enumerate(f_maps):
             in_feature_num = in_channels if i == 0 else f_maps[i - 1]
             self.encoders.append(Encoder(in_feature_num, out_feature_num, apply_pooling=i > 0,
-                                         pool_kernel_size=pool_kernel_size, order=layer_order,
-                                         num_groups=num_groups, dropout_prob=dropout_prob,
-                                         basic_module=self.basic_module))
+                                         pool_kernel_size=pool_kernel_size, upscale=conv_upscale, **common))
         mode, concat = _resolve_upsample(upsample, self.basic_module)
         reversed_f_maps = list(reversed(f_maps))
         self.decoders = nn.ModuleList()
         for i in range(len(reversed_f_maps) - 1):
-            self.decoders.append(Decoder(reversed_f_maps[i], reversed_f_maps[i + 1], order=layer_order,
-                                         num_groups=num_groups, dropout_prob=dropout_prob,
-                                         basic_module=self.basic_module, upsample_mode=mode, concat=concat))
-        self.final_conv = Conv3d(f_maps[0], out_channels, kernel_size=1, padding=0)
+            self.decoders.append(Decoder(reversed_f_maps[i], reversed_f_maps[i + 1], upsample_mode=mode,
+                                         concat=concat, scale_factor=pool_kernel_size, **common))
+        self.final_conv = conv_layer(f_maps[0], out_channels, 1, 0, is3d=self.is3d)
 
     def forward(self, x):
         if self.compute_dtype is not None:
@@ -115,35 +119,38 @@ class ResidualUNetSE3D(UNet3D):
     default_num_levels = 5
 
 
-_MODELS = {cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3D)}
+class UNet2D(UNet3D):
+    """2D U-Net (Ronneberger et al., arXiv:1505.04597) on (N, C, H, W):
+    DoubleConv blocks, 4 levels by default."""
 
-# constructor keys of the JAX UNetModel whose non-default values the port does
-# not run yet: key -> (accepted values, ROADMAP item)
-_UNPORTED_OPTIONS = {
-    "conv_kernel_size": ((3,), ITEM_2D),
-    "conv_padding": ((1,), ITEM_2D),
-    "conv_upscale": ((2,), ITEM_2D),
-    "remat": ((False,), ITEM_TRAINER),
-}
-# the upsampling that the port runs for each basic module; other modes raise
-_PORTED_UPSAMPLE = {"DoubleConv": ("default", "nearest"), "ResNetBlock": ("default", "deconv"),
-                    "ResNetBlockSE": ("default", "deconv")}
+    is3d = False
+
+
+class ResidualUNet2D(UNet3D):
+    """Residual 2D U-Net on (N, C, H, W): ResNet blocks, deconv upsampling,
+    summation joins, 5 levels by default."""
+
+    basic_module = "ResNetBlock"
+    is3d = False
+    default_num_levels = 5
+
+
+_MODELS = {cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3D, UNet2D, ResidualUNet2D)}
 
 
 def get_model(model_config: dict) -> UNet3D:
     """Builds the model named by `model_config['name']` from the JAX
-    package's model schema (pytorch3dunet_tpu/models/unet.py `get_model`)."""
+    package's model schema (pytorch3dunet_tpu/models/unet.py `get_model`).
+    `remat: true` is refused until "Trainer breadth" ports it."""
     config = dict(model_config)
     name = config.pop("name")
-    if name in _NOT_PORTED:
-        raise not_ported(name, _NOT_PORTED[name])
     if name not in _MODELS:
         raise ValueError(f"Unknown model {name!r}")
-    model_class = _MODELS[name]
-    options = dict(_UNPORTED_OPTIONS, upsample=(_PORTED_UPSAMPLE[model_class.basic_module], ITEM_2D))
-    for key, (accepted, item) in options.items():
-        if key in config and config[key] not in accepted:
-            raise not_ported(f"model.{key}={model_config[key]!r}", item)
-        if key != "upsample":
-            config.pop(key, None)
-    return model_class(**config)
+    if config.pop("remat", False):
+        raise not_ported(f"model.remat={model_config['remat']!r}", ITEM_TRAINER)
+    return _MODELS[name](**config)
+
+
+def is_model_2d(model) -> bool:
+    """Whether `model` is one of the 2D families (JAX unet.py `is_model_2d`)."""
+    return not model.is3d

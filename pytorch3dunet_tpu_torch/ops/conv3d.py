@@ -25,10 +25,13 @@ autograd of the conv on NDHWC tensors: its forward is K2 or K1, its input
 gradient K3, its weight gradient `torch.nn.grad.conv3d_weight` (the JAX package
 leaves the weight gradient to XLA, outside any kernel).
 
-`Conv3d` is the model's conv layer (NCDHW in and out, torch weight layout). It
-runs every 3x3x3 pad-1 conv through the above, and a 1x1 conv (the
-`final_conv`, the ResNet projection) through plain `F.conv3d`, as the JAX
-package computes those convs outside any Pallas kernel.
+`Conv3d` is the model's 3D conv layer (NCDHW in and out, torch weight layout).
+It runs every 3x3x3 pad-1 conv through the above, and any other kernel size or
+padding (the 1x1 `final_conv` and ResNet projection, `conv_kernel_size: [1, 3,
+3]`, ...) through cuDNN's `F.conv3d`: the JAX package's `conv_pallas.supported`
+refuses those shapes and computes them outside any Pallas kernel. `Conv2d`, the
+2D families' conv, is `F.conv2d` throughout, as the JAX package runs every 2D
+conv through `lax.conv_general_dilated`.
 """
 
 import contextlib
@@ -241,25 +244,25 @@ class Conv3d(nn.Conv3d):
     """`nn.Conv3d` (torch weight layout and init) on NCDHW tensors whose
     3x3x3 pad-1 conv runs on the kernels above.
 
-    The kernels read the NDHWC view of x: a copy when x is not channels-last
-    in memory (`input_copies` counts those copies). With grad enabled and a
+    The shape decides the path, once, at construction (`on_kernels`): kernel
+    3 / padding 1 takes the kernels, any other kernel size or padding, ints or
+    per-axis tuples, takes `F.conv3d` (JAX `conv_pallas.supported`). The
+    kernels read the NDHWC view of x: a copy when x is not channels-last in
+    memory (`input_copies` counts those copies). With grad enabled and a
     tensor that needs one, the conv goes through `Conv3dFunction`; otherwise
-    straight to `conv3d_fwd`. Kernel 1 / padding 0 runs `F.conv3d`. Either
-    computes in x's dtype, with the weights and bias cast to it."""
+    straight to `conv3d_fwd`. Either path computes in x's dtype, with the
+    weights and bias cast to it."""
 
     # layout copies made for the kernel's NDHWC input since the last reset
     input_copies = 0
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, padding: int = 1,
-                 bias: bool = True):
-        if (kernel_size, padding) not in ((3, 1), (1, 0)):
-            raise NotImplementedError(f"Conv3d supports kernel 3 / padding 1 and kernel 1 / padding 0, "
-                                      f"got kernel {kernel_size} / padding {padding}")
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3, padding=1, bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size, padding=padding, bias=bias)
+        self.on_kernels = self.kernel_size == (3, 3, 3) and self.padding == (1, 1, 1)
 
     def forward(self, x):
-        if self.kernel_size == (1, 1, 1):
-            return F.conv3d(x, cast_to(self.weight, x), cast_to(self.bias, x))
+        if not self.on_kernels:
+            return F.conv3d(x, cast_to(self.weight, x), cast_to(self.bias, x), padding=self.padding)
         x_cl = x.permute(0, 2, 3, 4, 1)
         if not x_cl.is_contiguous():
             x_cl = x_cl.contiguous()
@@ -275,3 +278,12 @@ class Conv3d(nn.Conv3d):
         else:
             y = conv3d_fwd(x_cl, w, b)
         return y.permute(0, 4, 1, 2, 3)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` (torch weight layout and init) on NCHW tensors: the 2D
+    families' conv, `F.conv2d` in x's dtype with the weights and bias cast to
+    it (JAX ops/conv.py `Conv2D`, `lax.conv_general_dilated`)."""
+
+    def forward(self, x):
+        return F.conv2d(x, cast_to(self.weight, x), cast_to(self.bias, x), padding=self.padding)

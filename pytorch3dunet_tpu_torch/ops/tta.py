@@ -67,8 +67,9 @@ def resolve_tta_axes(tta, tta_axes, is_2d: bool) -> tuple[int, ...]:
     return axes
 
 
-def patch_axes_to_array_axes(axes) -> tuple[int, ...]:
-    """Patch-space (z, y, x) axes -> axes of the port's (N, C, D, H, W) batch:
-    patch axis k is array axis k + 2 (the JAX package's channels-last
-    (N, D, H, W, C) batch has it at k + 1)."""
-    return tuple(a + 2 for a in axes)
+def patch_axes_to_array_axes(axes, is_2d: bool = False) -> tuple[int, ...]:
+    """Patch-space (z, y, x) axes -> axes of the port's model-ready batch:
+    patch axis k is array axis k + 2 of an (N, C, D, H, W) batch, and k + 1 of
+    a 2D model's (N, C, H, W) batch, whose z is gone (the JAX package's
+    channels-last batches have them at k + 1 and k)."""
+    return tuple(a + (1 if is_2d else 2) for a in axes)

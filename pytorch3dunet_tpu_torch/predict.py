@@ -8,6 +8,7 @@ On CUDA the default `StandardPredictor` becomes `DeviceSlidingWindowPredictor`
 (the sweep on the device), as the JAX CLI does on its accelerator;
 `predictor.force_host: true` keeps the host loop. On `device: cpu` the host
 loop stays the default. `LazyPredictor` is always the host loop.
+`DSB2018Predictor` predicts the PNG folders of `DSB2018Dataset` image by image.
 
 With `predictor.performance_metric` each volume is scored against its ground
 truth; the per-class average and the average over the volumes are logged.
@@ -22,15 +23,15 @@ import torch
 from pytorch3dunet_tpu_torch.config import load_config, resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_test_loaders
 from pytorch3dunet_tpu_torch.models.unet import get_model
-from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor, LazyPredictor, StandardPredictor
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_2D, get_logger, not_ported
+from pytorch3dunet_tpu_torch.predictor import (DeviceSlidingWindowPredictor, DSB2018Predictor, LazyPredictor,
+                                                StandardPredictor)
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 from pytorch3dunet_tpu_torch.utils.weights import load_weights
 
 logger = get_logger("UNet3DPredict")
 
-_PREDICTORS = {cls.__name__: cls for cls in (StandardPredictor, LazyPredictor, DeviceSlidingWindowPredictor)}
-# predictors of the JAX package that the port does not have yet, with their ROADMAP item
-_NOT_PORTED = {"DSB2018Predictor": ITEM_2D}
+_PREDICTORS = {cls.__name__: cls for cls in (StandardPredictor, LazyPredictor, DeviceSlidingWindowPredictor,
+                                             DSB2018Predictor)}
 
 
 def get_predictor(model, config: dict):
@@ -46,8 +47,6 @@ def get_predictor(model, config: dict):
     if class_name == "StandardPredictor" and torch.device(config["device"]).type == "cuda" and not force_host:
         logger.info("CUDA device: using DeviceSlidingWindowPredictor (set predictor.force_host to opt out)")
         class_name = "DeviceSlidingWindowPredictor"
-    if class_name in _NOT_PORTED:
-        raise not_ported(class_name, _NOT_PORTED[class_name])
     if class_name not in _PREDICTORS:
         raise ValueError(f"Unknown predictor {class_name!r}")
     out_channels = config["model"].get("out_channels")

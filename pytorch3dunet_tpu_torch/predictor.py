@@ -17,9 +17,19 @@ patch loop, the normalization and the stitching run there
 (inference_device.py); volumes over a budget stream through in z-slabs, and the
 H5 write of one volume overlaps the next volume's sweep. It is the predict
 CLI's default on CUDA.
+
+A 2D model (UNet2D, ResidualUNet2D) predicts the same (z, y, x) patch grid
+from depth-1 patches: each batch loses its singleton z before the forward and
+gets it back after, and the device sweep feeds the planes of a batch as the
+model's batch.
+
+`DSB2018Predictor`: per-image 2D prediction of a folder of PNGs
+(datasets/dsb.py), each image's probabilities and their connected components
+written to an H5 file (`dsb_save_batch`).
 """
 
 import collections
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -29,8 +39,10 @@ import torch
 
 from pytorch3dunet_tpu_torch.augment.transforms import Transformer
 from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder, calculate_stats, mirror_pad, remove_padding
+from pytorch3dunet_tpu_torch.models.unet import is_model_2d
 from pytorch3dunet_tpu_torch.ops.tta import flip_combos, patch_axes_to_array_axes, resolve_tta_axes, tta_average
 from pytorch3dunet_tpu_torch.utils.misc import get_logger
+from pytorch3dunet_tpu_torch.utils.ndimage import label as cc_label
 
 logger = get_logger("UNetPredictor")
 
@@ -80,23 +92,27 @@ class StandardPredictor:
 
     def _tta_patch_axes(self) -> tuple[int, ...]:
         """Patch-space (z, y, x) axes the TTA ensemble mirrors; () when off."""
-        return resolve_tta_axes(self.tta, self.tta_axes, is_2d=False)
+        return resolve_tta_axes(self.tta, self.tta_axes, is_model_2d(self.model))
 
     def _tta_wrap(self, run):
-        """Wraps a batch forward `run` with the mirror ensemble: patch axis k
-        is axis k + 2 of the (N, C, D, H, W) batch."""
+        """Wraps a model-ready batch forward `run` with the mirror ensemble."""
         axes = self._tta_patch_axes()
         if not axes:
             return run
-        combos = flip_combos(patch_axes_to_array_axes(axes))
+        combos = flip_combos(patch_axes_to_array_axes(axes, is_model_2d(self.model)))
         return lambda x: tta_average(run, x, combos)
 
     def _forward(self, batch_ncdhw: np.ndarray) -> np.ndarray:
-        """Probabilities of an (N, C, D, H, W) numpy batch, as float32 numpy."""
+        """Probabilities of an (N, C, D, H, W) numpy batch, as float32 numpy;
+        a 2D model sees the batch without its singleton z (JAX
+        predictor.py:113-135)."""
+        two_d = is_model_2d(self.model)
+        if two_d and batch_ncdhw.shape[2] != 1:
+            raise ValueError(f"a 2D model predicts patches of depth 1, got a batch of shape {batch_ncdhw.shape}")
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(batch_ncdhw, dtype=np.float32)).to(self.device)
-            probs = self._tta_wrap(lambda xi: self.model(xi)[0])(x)
-            return probs.float().cpu().numpy()
+            probs = self._tta_wrap(lambda xi: self.model(xi)[0])(x[:, :, 0] if two_d else x)
+            return (probs[:, :, None] if two_d else probs).float().cpu().numpy()
 
     @staticmethod
     def _to_segmentation(probs: np.ndarray, channel_axis: int = 0) -> np.ndarray:
@@ -375,6 +391,19 @@ def _plan_strip_grid(spatial, patch_shape, halo_shape, cin, budget, min_strip=64
     return shape, starts
 
 
+def _plan_plane_grid(spatial, halo_shape, cin, budget, patch_batch):
+    """2D arm of `patch_mode: slab`: full-plane depth-1 patches replace the xy
+    tile grid, so there are no tile borders and no redundant halo compute, and
+    GroupNorm sees the whole plane. `patch_batch` planes go through one
+    forward, so the budget bounds patch_batch x the padded plane. Returns
+    ((1, H, W), starts) or None."""
+    d, h, w = (int(s) for s in spatial)
+    _, hy, hx = halo_shape
+    if (h + 2 * hy) * (w + 2 * hx) * cin * max(1, patch_batch) > int(budget):
+        return None
+    return (1, h, w), np.asarray([(z, 0, 0) for z in range(d)], dtype=np.int32)
+
+
 class DeviceSlidingWindowPredictor(StandardPredictor):
     """Sliding-window prediction with the patch sweep running on the device.
 
@@ -396,7 +425,9 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
             one device).
         max_device_voxels: slab the sweep when the padded volume is larger
             than this many elements (default 1e9).
-        patch_batch: patches per forward (default 1).
+        patch_batch: patches per forward (default 1 for a 3D model, 16 for a
+            2D one, whose depth-1 patches would underfill the card one at a
+            time; 24 for a 2D model's full-plane slab plan).
         patch_mode: 'grid' (default) sweeps the configured patch grid
             unchanged (reference-exact patch independence). 'slab' coalesces
             the grid into full-xy z-slabs as deep as `max_patch_voxels`
@@ -404,7 +435,9 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
             compute is paid only along z; when no full-plane slab fits, strips
             spanning one full axis; when neither fits, the configured grid
             with a warning. Outputs differ from 'grid' near former interior
-            seams.
+            seams. For a 2D model 'slab' predicts whole planes, 24 (else 16,
+            at most the stack depth) per forward, when `max_patch_voxels`
+            holds them.
         write_behind: run the gzip H5 output write on a background thread so
             the next volume's sweep overlaps it (default true). The previous
             volume's prediction stays in host memory meanwhile; false saves
@@ -426,6 +459,9 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
             raise ValueError(f"unknown patch_mode {patch_mode!r}: expected 'grid' or 'slab'")
         self.patch_mode = patch_mode
         self.max_patch_voxels = int(max_patch_voxels)
+        # the patch_batch of a 2D full-plane slab plan (`_plan_geometry`), which
+        # wins over `patch_batch`: the plan clamped it to the stack depth
+        self._planned_patch_batch = None
         self._sweeps = {}
         # write-behind output state (_submit_write / finalize)
         self._writer = None
@@ -434,21 +470,38 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
     def _get_sweep(self, patch_shape, halo_shape, normalize, stats):
         from pytorch3dunet_tpu_torch.inference_device import DeviceSlidingWindow
 
+        patch_batch = self._planned_patch_batch or self.patch_batch or (16 if is_model_2d(self.model) else 1)
         # the key is structural: per-volume stats are passed per call
-        key = (tuple(patch_shape), tuple(halo_shape), normalize)
+        key = (tuple(patch_shape), tuple(halo_shape), normalize, patch_batch)
         if key not in self._sweeps:
             self._sweeps[key] = DeviceSlidingWindow(
                 self.model, patch_shape, halo_shape, normalize=normalize, stats=stats, blend=self.blend,
-                patch_batch=self.patch_batch or 1, tta_axes=self._tta_patch_axes())
+                patch_batch=patch_batch, tta_axes=self._tta_patch_axes())
         return self._sweeps[key]
 
     def _plan_geometry(self, spatial, patch_shape, starts, halo_shape, cin):
         """Applies `patch_mode` to the configured (patch_shape, starts) grid:
         'grid' returns them unchanged; 'slab' plans full-plane z-slabs, else
-        strips, else keeps the grid."""
+        strips, else keeps the grid; for a 2D model, whole planes (JAX
+        predictor.py:538-575)."""
+        self._planned_patch_batch = None
         if self.patch_mode != "slab":
             return patch_shape, starts
         n_grid = len(starts)
+        if is_model_2d(self.model):
+            d = int(spatial[0])
+            candidates = ((min(self.patch_batch, d),) if self.patch_batch is not None
+                          else tuple(dict.fromkeys((min(24, d), min(16, d)))))
+            for patch_batch in candidates:
+                plan = _plan_plane_grid(spatial, halo_shape, cin, self.max_patch_voxels, patch_batch)
+                if plan is not None:
+                    self._planned_patch_batch = patch_batch
+                    logger.info(f"patch_mode 'slab': {len(plan[1])} full-plane 2D patches replace the "
+                                f"{n_grid}-tile grid (patch_batch={patch_batch})")
+                    return plan
+            logger.warning(f"patch_mode 'slab': {spatial[1]}x{spatial[2]} planes x patch_batch={patch_batch} "
+                           f"exceed max_patch_voxels={self.max_patch_voxels}; keeping the configured grid")
+            return patch_shape, starts
         plan = _plan_slab_grid(spatial, patch_shape, halo_shape, cin, self.max_patch_voxels)
         if plan is not None:
             logger.info(f"patch_mode 'slab': {len(plan[1])} full-plane z-slab(s) of depth {plan[0][0]} replace "
@@ -473,6 +526,12 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         from pytorch3dunet_tpu_torch.inference_device import detect_device_path
 
         dataset = test_loader.dataset
+        if is_model_2d(self.model):
+            patch_z = dataset.raw_slices[0][-3].stop - dataset.raw_slices[0][-3].start
+            if patch_z != 1 or dataset.halo_shape[0] != 0:
+                logger.warning("2D model with patches deeper than 1 or a z halo: falling back to the host loop. "
+                               "Set patch_shape [1, H, W] and halo_shape [0, hy, hx] to keep the device sweep.")
+                return super().__call__(test_loader)
         device_path = detect_device_path(dataset.transformer.phase_config["raw"], dataset.transformer.config_base)
         if device_path is None:
             logger.warning("Transformer pipeline unsupported by the device sweep: falling back to the host loop. "
@@ -752,3 +811,78 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
                     ptr = emit_end
             while writes:
                 writes.popleft().result()
+
+
+class DSB2018Predictor(StandardPredictor):
+    """Per-image 2D prediction of a DSB2018 folder (JAX predictor.py:1009-1098,
+    reference predictor.py:277-330): each test batch (images, paths) goes
+    through `predict_image`, and `dsb_save_batch` writes each image's
+    probabilities, and with `save_segmentation` their connected components
+    above `pmaps_thershold` (the reference's spelling of the key), to
+    `<output_dir>/<image name>_predictions.h5`. The writes run on a small
+    thread pool behind the next image's forward.
+
+    `pad_to_multiple`: reflect-pad each image's H and W up to the next
+    multiple before the forward (edge-pad where the image is too small to
+    reflect) and crop the probabilities back. Off by default: the padding
+    shifts the image-wide normalization statistics slightly."""
+
+    # writer threads: h5py runs one call at a time, so more threads would
+    # only queue behind each other; two keep the labeling beside a write
+    write_threads = 2
+
+    def __init__(self, model, output_dir, out_channels, device, save_segmentation=True, pmaps_thershold=0.5,
+                 pad_to_multiple=None, **kwargs):
+        super().__init__(model, output_dir, out_channels, device, save_segmentation=save_segmentation, **kwargs)
+        self.pmaps_threshold = pmaps_thershold
+        self.pad_to_multiple = pad_to_multiple
+
+    def __call__(self, test_loader):
+        with ThreadPoolExecutor(max_workers=self.write_threads, thread_name_prefix="dsb-write") as writer:
+            futures = [writer.submit(dsb_save_batch, self.output_dir, paths, self.predict_image(img),
+                                     self.save_segmentation, self.pmaps_threshold)
+                       for img, paths in test_loader]
+            for future in futures:
+                future.result()
+
+    def predict_image(self, img) -> np.ndarray:
+        """Probabilities of an (N, C, 1, H, W) or (N, C, H, W) image batch, as
+        float32 numpy of the same layout; the padding runs on the device."""
+        img = np.asarray(img, dtype=np.float32)
+        had_depth = img.ndim == 5
+        if had_depth:
+            img = np.squeeze(img, axis=2)
+        h, w = img.shape[-2:]
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+            if self.pad_to_multiple:
+                m = int(self.pad_to_multiple)
+                for size, pad in ((h, (0, 0, 0, -h % m)), (w, (0, -w % m, 0, 0))):
+                    if any(pad):
+                        x = torch.nn.functional.pad(x, pad, mode="reflect" if max(pad) < size else "replicate")
+            probs = self._tta_wrap(lambda xi: self.model(xi)[0])(x)[:, :, :h, :w].float().cpu().numpy()
+        return probs[:, :, None] if had_depth else probs
+
+
+def pmaps_to_segmentation(pmap: np.ndarray, threshold: float = 0.5) -> np.ndarray:
+    """The connected components (full connectivity) of `pmap > threshold`, uint16."""
+    return cc_label((pmap > threshold).astype(np.uint8)).astype("uint16")
+
+
+def dsb_save_batch(output_dir, paths, pred, save_segmentation=True, pmaps_thershold=0.5):
+    """Writes each image's probabilities (`predictions`, singleton axes
+    squeezed) and their `segmentation` to `<image stem>_predictions.h5`, in
+    `output_dir` or beside the image."""
+    import h5py
+
+    for single_pred, single_path in zip(pred, paths):
+        logger.info(f"Processing {single_path}")
+        single_pred = single_pred.squeeze()
+        out_file = os.path.splitext(single_path)[0] + "_predictions.h5"
+        if output_dir is not None:
+            out_file = os.path.join(output_dir, os.path.split(out_file)[1])
+        with h5py.File(out_file, "w") as f:
+            f.create_dataset("predictions", data=single_pred, compression="gzip")
+            if save_segmentation:
+                f.create_dataset("segmentation", data=pmaps_to_segmentation(single_pred, pmaps_thershold),
+                                 compression="gzip")

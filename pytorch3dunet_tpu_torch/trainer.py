@@ -23,6 +23,11 @@ model computes in bf16 (models/unet.py) while the parameters, their gradients,
 Adam's moments and the checkpoints stay float32; validation runs the same
 bf16 model.
 
+A 2D model (UNet2D, ResidualUNet2D) trains on the (N, C, 1, H, W) batches of
+depth-1 patches: each batch loses its singleton z after the device
+augmentation and before the forward, and the host metric gets it back
+(JAX trainer.py:454-465, metrics.py `to_metric_layout`).
+
 Not ported yet, and refused when a config asks for them: gradient
 accumulation, EMA weights, `resume: auto`, profiler traces and parameter
 histograms (ROADMAP Queue 1, "Trainer breadth") and spatial sharding
@@ -44,7 +49,7 @@ from pytorch3dunet_tpu_torch.utils.misc import (ITEM_PARALLELISM, ITEM_TRAINER, 
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
-from pytorch3dunet_tpu_torch.models.unet import get_model
+from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d
 from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter, split_device_transforms
 from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer
@@ -210,15 +215,30 @@ class UNetTrainer:
     def _prepare_batch(self, raw, target, augment: bool = False):
         """An NCDHW loader batch on the device. A train batch (`augment`) goes
         through the device augmenter, a target without a channel axis with one
-        added for it and taken away after (JAX trainer.py:440-462)."""
+        added for it and taken away after; then a 2D model's batch loses its
+        singleton z (JAX trainer.py:440-465)."""
         inp = torch.as_tensor(np.asarray(raw)).to(self.device)
         target = torch.as_tensor(np.asarray(target)).to(self.device)
+        has_channel = target.ndim == inp.ndim
         if augment and self.device_augmenter is not None:
-            has_channel = target.ndim == inp.ndim
             inp, target = self.device_augmenter(inp, target if has_channel else target[:, None],
                                                 self.augment_generators)
             target = target if has_channel else target[:, 0]
+        if is_model_2d(self.model):
+            if inp.shape[2] != 1:
+                raise ValueError(f"a 2D model trains on patches of depth 1, got a batch of shape {tuple(inp.shape)}")
+            inp, target = inp[:, :, 0], target[:, :, 0] if has_channel else target[:, 0]
         return inp, target
+
+    def _metric_layout(self, probs, target):
+        """(probabilities, target) as the host metrics take them: NCDHW numpy,
+        a 2D model's with their singleton z back (JAX metrics.py
+        `to_metric_layout`)."""
+        probs, target = probs.detach().cpu().numpy(), target.cpu().numpy()
+        if is_model_2d(self.model):
+            target = target[:, :, None] if target.ndim == probs.ndim else target[:, None]
+            probs = probs[:, :, None]
+        return probs, target
 
     def train(self):
         """Trains for one epoch; returns True when training should stop now."""
@@ -253,7 +273,7 @@ class UNetTrainer:
                 if not self.skip_train_validation:
                     # the target the network saw: after device augmentation
                     # the host batch is the one before it
-                    score = self.eval_criterion(probs.detach().cpu().numpy(), target.cpu().numpy())
+                    score = self.eval_criterion(*self._metric_layout(probs, target))
                     train_eval_scores.update(float(score), batch_size)
                 logger.info(f"Training stats. Loss: {train_losses.avg}. Evaluation score: {train_eval_scores.avg}")
                 self._log_stats("train", train_losses.avg, train_eval_scores.avg)
@@ -285,14 +305,14 @@ class UNetTrainer:
         self.model.eval()
         try:
             with torch.no_grad():
-                for i, (raw, target_host) in enumerate(self.loaders["val"]):
-                    inp, target = self._prepare_batch(raw, target_host)
+                for i, (raw, target) in enumerate(self.loaders["val"]):
+                    inp, target = self._prepare_batch(raw, target)
                     probs, logits = self.model(inp)
                     loss = self.loss_criterion(logits, target)
                     if self.device_metric is not None:
                         score = self.device_metric(probs, target)
                     else:
-                        score = float(self.eval_criterion(probs.cpu().numpy(), np.asarray(target_host)))
+                        score = float(self.eval_criterion(*self._metric_layout(probs, target)))
                     pending.append((loss, score, inp.shape[0]))
                     if self.validate_iters is not None and self.validate_iters <= i:
                         break

@@ -272,10 +272,13 @@ def test_cpu_calls_do_not_count_as_launches(monkeypatch):
     assert conv3d.launches == {"conv3d_fwd": 0, "conv3d_packw": 0, "conv3d_im2col": 0}
 
 
-@pytest.mark.parametrize("kernel_size,padding", [(3, 1), (1, 0)])
+@pytest.mark.parametrize("kernel_size,padding", [(3, 1), (1, 0), (5, 2), ((1, 3, 3), (0, 1, 1)), (3, 0)])
 def test_layer_matches_torch_conv3d(kernel_size, padding):
-    rs = np.random.RandomState(kernel_size)
+    # the shape picks the path at construction: 3x3x3 pad 1 the kernels
+    # (their plain version here), anything else F.conv3d
+    rs = np.random.RandomState(kernel_size if isinstance(kernel_size, int) else 7)
     layer = Conv3d(6, 4, kernel_size=kernel_size, padding=padding)
+    assert layer.on_kernels == ((kernel_size, padding) == (3, 1))
     x = torch.from_numpy(rs.rand(2, 6, 5, 9, 7).astype(np.float32))
     with torch.no_grad():
         got = layer(x)
@@ -284,11 +287,6 @@ def test_layer_matches_torch_conv3d(kernel_size, padding):
     want = F.conv3d(x, layer.weight, layer.bias, padding=padding)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     torch.testing.assert_close(plain, got, rtol=0, atol=0)
-
-
-def test_layer_rejects_other_kernels():
-    with pytest.raises(NotImplementedError):
-        Conv3d(2, 2, kernel_size=5, padding=2)
 
 
 def test_plain_conv_restores_the_kernel_path():

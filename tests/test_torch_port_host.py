@@ -296,16 +296,11 @@ def test_port_loaders_read_the_h5_files(tmp_path):
     assert patches.shape == (2, 1, 10, 72, 72) and len(indices) == 2
 
 
-def test_unported_dataset_raises(tmp_path):
-    config = {"loaders": {**_loaders_config(tmp_path), "dataset": "DSB2018Dataset"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_dutils.get_train_loaders(config)
-
-
 # --- weights export, misc -------------------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,order", [("ResidualUNetSE3D", "gcr"), ("UNet3D", "bcr")])
+@pytest.mark.parametrize("name,order", [("ResidualUNetSE3D", "gcr"), ("UNet3D", "bcr"), ("UNet2D", "bcr"),
+                                        ("ResidualUNet2D", "gcr")])
 def test_weights_export_matches_jax(name, order):
     torch.manual_seed(0)
     model = get_model({"name": name, "in_channels": 1, "out_channels": 2, "f_maps": 8, "num_groups": 4,
@@ -371,7 +366,7 @@ def test_refusals_name_live_roadmap_items():
     queue1 = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
     titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", queue1, flags=re.M))
     named = {value for key, value in vars(misc).items() if key.startswith("ITEM_")}
-    assert len(named) == 3 and named <= titles, named - titles
+    assert len(named) == 2 and named <= titles, named - titles
     numbered = [f"{path.name}:{n}" for path in sorted(PORT.rglob("*.py"))
                 for n, line in enumerate(path.read_text().splitlines(), 1) if re.search(r"\bitem \d", line)]
     assert numbered == []

@@ -95,13 +95,7 @@ def test_channel_schedule_of_the_confocal_model():
                      (384, 128), (128, 128), (192, 64), (64, 64), (96, 32), (32, 32)]
 
 
-@pytest.mark.parametrize("name", ["UNet2D", "ResidualUNet2D"])
-def test_other_families_are_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({"name": name, "in_channels": 1, "out_channels": 1})
-
-
-@pytest.mark.parametrize("key,value", [("upsample", "deconv"), ("remat", True), ("conv_kernel_size", 5)])
+@pytest.mark.parametrize("key,value", [("remat", True)])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model({**BASE, "out_channels": 1, key: value})

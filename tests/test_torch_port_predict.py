@@ -188,13 +188,6 @@ def test_resolve_device_rejects_unknown():
         resolve_device("xpu")
 
 
-def test_unported_predictors_raise(tmp_path):
-    config = {"loaders": {"output_dir": str(tmp_path)}, "model": MODEL, "device": torch.device("cpu"),
-              "predictor": {"name": "DSB2018Predictor"}}
-    with pytest.raises(NotImplementedError, match="The 2D families and the remaining model options"):
-        get_predictor(None, config)
-
-
 # --- performance_metric and LazyPredictor -----------------------------------------------------------------------
 
 # the multiclass recipe (resources/3DUnet_multiclass/test_config.yaml) shrunk: 3 classes, softmax, the argmax saved

@@ -3,9 +3,9 @@
 A train config goes through `create_trainer` (model, loss, metric, the
 device-augmentation split, optimizer, scheduler, trainer options) with empty
 in-memory loaders, a test config through `get_model` and `get_predictor`, and
-both through the dataset class their loaders name. A config the port runs
-passes them all; every other one is refused with a NotImplementedError that
-names the ROADMAP Queue 1 item that ports what it needs.
+both through the dataset class their loaders name. Every config passes them
+all: a config the port did not run would be refused with a NotImplementedError
+that names the ROADMAP Queue 1 item that ports what it needs.
 """
 
 import glob
@@ -20,14 +20,6 @@ from pytorch3dunet_tpu_torch.predict import get_predictor
 from pytorch3dunet_tpu_torch.trainer import create_trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ITEM_2D = "The 2D families and the remaining model options"
-# the configs the port does not run yet, and the item each one waits for
-REFUSED = {
-    "2DUnet_confocal_boundary/test_config.yml": ITEM_2D,
-    "2DUnet_confocal_boundary/train_config.yml": ITEM_2D,
-    "2DUnet_dsb2018/test_config.yml": ITEM_2D,
-    "2DUnet_dsb2018/train_config.yml": ITEM_2D,
-}
 CONFIGS = sorted(os.path.relpath(p, os.path.join(REPO, "resources"))
                  for p in glob.glob(os.path.join(REPO, "resources", "*", "*.y*ml")))
 
@@ -43,17 +35,13 @@ def _check(config: dict, tmp):
     _dataset_class(config["loaders"])
 
 
-def test_the_port_runs_21_of_the_25_configs():
-    assert len(CONFIGS) == 25 and set(REFUSED) <= set(CONFIGS)
-    assert len(CONFIGS) - len(REFUSED) == 21
+def test_the_port_runs_all_25_configs():
+    assert len(CONFIGS) == 25
+    assert {"2DUnet_confocal_boundary/train_config.yml", "2DUnet_dsb2018/test_config.yml"} <= set(CONFIGS)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_resource_config_passes_or_names_its_roadmap_item(name, tmp_path):
     with open(os.path.join(REPO, "resources", name)) as f:
         config = yaml.safe_load(f)
-    if name in REFUSED:
-        with pytest.raises(NotImplementedError, match=REFUSED[name]):
-            _check(config, tmp_path)
-    else:
-        _check(config, tmp_path)
+    _check(config, tmp_path)

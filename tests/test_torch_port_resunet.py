@@ -255,12 +255,6 @@ def test_se_keys_are_the_reference_names():
         assert key in keys, key
 
 
-@pytest.mark.parametrize("upsample", ["nearest", "trilinear"])
-def test_unported_upsampling_of_the_resnet_families_raises(upsample):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({**_cfg("ResidualUNet3D"), "upsample": upsample})
-
-
 def test_explicit_deconv_joins_by_concat_as_jax():
     # JAX unet.py `_resolve_upsample`: a named mode keeps concat joins
     model = get_model({**_cfg("ResidualUNet3D"), "upsample": "deconv"})

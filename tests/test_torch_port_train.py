@@ -389,15 +389,18 @@ def test_checkpoint_loads_in_jax_and_in_the_port_predict_cli(cli_run, tmp_path):
 
 def test_port_imports_no_jax_h5py_yaml_or_tensorboard():
     # the card's machine has none of these: every module of the port imports
-    # them, if at all, inside the function that needs them; and the port imports
-    # nothing of the JAX package, nor does chip_smoke.py
+    # them, if at all, inside the function that needs them (imageio, which
+    # datasets/dsb.py reads PNGs with, too); and the port imports nothing of
+    # the JAX package, nor does chip_smoke.py
     script = ("import importlib, pkgutil, sys\n"
               "import chip_smoke\n"
               "import pytorch3dunet_tpu_torch as port\n"
-              "for module in pkgutil.walk_packages(port.__path__, 'pytorch3dunet_tpu_torch.'):\n"
-              "    importlib.import_module(module.name)\n"
+              "names = [m.name for m in pkgutil.walk_packages(port.__path__, 'pytorch3dunet_tpu_torch.')]\n"
+              "assert 'pytorch3dunet_tpu_torch.datasets.dsb' in names, names\n"
+              "for name in names:\n"
+              "    importlib.import_module(name)\n"
               "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
-              "             {'jax', 'flax', 'optax', 'h5py', 'yaml', 'tensorboardX', 'pytorch3dunet_tpu'}))\n")
+              "             {'jax', 'flax', 'optax', 'h5py', 'yaml', 'tensorboardX', 'imageio', 'pytorch3dunet_tpu'}))\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)

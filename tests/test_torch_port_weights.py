@@ -29,6 +29,11 @@ MODELS = {
                          "f_maps": 8, "num_groups": 4, "num_levels": 2},
     "UNet3D-bcr": {"name": "UNet3D", "in_channels": 1, "out_channels": 1, "layer_order": "bcr", "f_maps": 8,
                    "num_levels": 2},
+    # 2D leaves: HWIO kernels, BatchNorm batch_stats, the ConvTranspose2d
+    "UNet2D-bcr": {"name": "UNet2D", "in_channels": 1, "out_channels": 1, "layer_order": "bcr", "f_maps": 8,
+                   "num_levels": 3},
+    "ResidualUNet2D": {"name": "ResidualUNet2D", "in_channels": 1, "out_channels": 2, "layer_order": "gcr",
+                       "f_maps": 8, "num_groups": 4, "num_levels": 3},
 }
 
 
