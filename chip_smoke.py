@@ -159,7 +159,20 @@ phases 24-26 assert 0 launches of K1, K2 and K3:
      K2 against the plain conv; conv_kernel_size [1, 3, 3] with conv_padding
      [0, 1, 1] 0 K2 (cuDNN); one f32 trilinear step, 14 K2 + 14 K3, held as
      phase 13's to a float64 step (the plain f32 step itself is 4.6e-3 of
-     max|g| off it at a level-2 conv).
+     max|g| off it at a level-2 conv);
+ 28. the trainer's breadth on the confocal UNet3D and phase 7's batches:
+     (a) `model.remat`: one f32 step's grads against the step without it (28
+     K2: each forward and its recompute, 14 K3), step time and peak memory with
+     and without, f32 and bf16; (b) `grad_accum_steps: 2` over two batch-1
+     batches against one batch-2 step (28 K2 and 28 K3 an update): the mean
+     grads and the updated parameters; (c) the confocal `_tpu` train config with
+     its commented lines on (`ema_decay: 0.999`, `grad_accum_steps: 2`,
+     `resume: auto`), bf16 with its device augmentation: 4 updates and a
+     validation, then a new trainer resumes for 2, against 6 uninterrupted
+     updates; the checkpoint's EMA and RNG states; the EMA against a float64
+     recurrence; one update's time and the EMA's share; (d) how long the save
+     blocks the loop with `async_checkpoint` on and off, and the written file
+     against the state at the save.
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -359,6 +372,15 @@ DSB_PAD_TOL, DSB_MARGIN = 1e-4, 64
 OPTIONS_3D = {"trilinear": {"upsample": "trilinear"}, "deconv": {"upsample": "deconv"},
               "upscale1": {"conv_upscale": 1}}
 ANISOTROPIC_3D = {"conv_kernel_size": [1, 3, 3], "conv_padding": [0, 1, 1]}
+# phase 28: the trainer's breadth. remat gradients against the plain step's,
+# relative to each tensor's max |g| (the same kernels and cuDNN's deterministic
+# algorithms); accumulated against batch-2 gradients relative to the step's
+# max |g| (another summation order over the batch); the
+# f32 EMA against a float64 recurrence, relative to the parameters' max |p|;
+# a resumed run's losses against the uninterrupted run's, absolute
+REMAT_TOL, ACCUM_TOL, EMA_TOL, RESUME_TOL = 1e-5, 1e-4, 1e-6, 1e-4
+# the three commented lines of resources/3DUnet_confocal_boundary_tpu/train_config.yml
+BREADTH_TRAINER = {"ema_decay": 0.999, "grad_accum_steps": 2, "resume": "auto"}
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
 # bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -1957,6 +1979,246 @@ def options_phase(device, batch, smi):
     return launches
 
 
+def breadth_phase(device, batches, smi):
+    """Phase 28: the trainer's breadth on the confocal UNet3D at full width on
+    phase 7's 80 x 170 x 170 batches: (a) remat against the plain step, f32
+    and bf16; (b) a 2-microbatch accumulated update against the batch-2 step;
+    (c) the confocal `_tpu` train config with `ema_decay`, `grad_accum_steps`
+    and `resume: auto` on, stopped after 4 updates and resumed for 2, against
+    an uninterrupted run of 6; (d) the async checkpoint. Returns the launches
+    of each path by kernel and dtype."""
+    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+    from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint
+    from pytorch3dunet_tpu_torch.utils.misc import RunningAverage
+    from pytorch3dunet_tpu_torch.utils.optim import create_optimizer
+
+    launches = {}
+    n_conv = 14
+    (raw, target), val_batch = batches
+    inp, tgt = torch.from_numpy(raw).to(device), torch.from_numpy(target).to(device)
+
+    # (a) remat: one f32 step's grads with and without it, on cuDNN's
+    # deterministic algorithms; then each variant's step time and peak
+    # memory, f32 and bf16
+    torch.manual_seed(SEED)
+    base = get_model(dict(MODEL))
+    randomize_group_norms(base, torch.Generator().manual_seed(SEED + 28))
+    criterion = get_loss_criterion({"loss": dict(TRAIN_SECTIONS["loss"])})
+    models = {}
+    for remat in (False, True):
+        models[remat] = get_model({**MODEL, "remat": remat})
+        models[remat].load_state_dict(base.state_dict())
+        models[remat] = models[remat].to(device).train()
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = {remat: count_launches(launches, f"breadth_remat_{remat}_step",
+                                       lambda: grads_of_step(models[remat], criterion, inp, tgt))
+                 for remat in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    expect_launches(launches, "breadth_remat_False_step", k2=(n_conv, 0), k3=(n_conv, 0))
+    # remat recomputes every level in backward: each conv's forward runs twice
+    expect_launches(launches, "breadth_remat_True_step", k2=(2 * n_conv, 0), k3=(n_conv, 0))
+    gap = worst_rel(grads[True], grads[False])
+    log(f"[28 remat] one f32 step of {TRAIN_PATCH}: launches {launches['breadth_remat_True_step']} with remat, "
+        f"{launches['breadth_remat_False_step']} without; grads with remat against without, worst over "
+        f"{len(grads[True])} tensors {gap[0]:.3e} ({gap[1]}; tol {REMAT_TOL})")
+    check(gap[0] <= REMAT_TOL, f"remat changes the step's grads: {gap}")
+    del grads
+    rows = []
+    for dtype in (None, torch.bfloat16):
+        for remat in (False, True):
+            model = models[remat]
+            model.compute_dtype = dtype
+            optimizer = create_optimizer(TRAIN_SECTIONS["optimizer"], model)
+
+            def step():
+                optimizer.zero_grad(set_to_none=True)
+                criterion(model(inp)[1], tgt).backward()
+                optimizer.step()
+
+            if dtype is not None:
+                path = f"breadth_remat_{remat}_bf16_step"
+                count_launches(launches, path, step)
+                expect_launches(launches, path, k2=(0, (1 + remat) * n_conv), k3=(0, n_conv))
+            torch.cuda.reset_peak_memory_stats()
+            ms = timed_ms(step)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rows.append(f"{'bf16' if dtype else 'f32'} remat {remat}: {ms:.2f} ms, peak {peak:.2f} GiB")
+            del optimizer
+    log(f"[28 remat] train step (forward + backward + Adam) of {TRAIN_PATCH}, batch 1: {' | '.join(rows)} ({smi})")
+    del models, base
+    torch.cuda.empty_cache()
+
+    # (b) accumulation: 2 batch-1 microbatches against their batch-2 stack,
+    # with BCEWithLogitsLoss (a per-voxel mean: the batch-2 loss is the mean of
+    # the two; BCEDiceLoss pools the batch), SGD
+    second = synthetic_batch(np.random.RandomState(SEED + 28))
+    stacked = tuple(np.concatenate(pair) for pair in zip((raw, target), second))
+    results = {}
+    with tempfile.TemporaryDirectory() as checkpoint_dir:
+        for name, train in (("accum", [(raw, target), second]), ("batch2", [stacked])):
+            config = {"manual_seed": SEED, "device": "cuda", "model": dict(MODEL), **TRAIN_SECTIONS,
+                      "loss": {"name": "BCEWithLogitsLoss", "skip_last_target": True},
+                      "optimizer": {"name": "SGD", "learning_rate": 0.05},
+                      "trainer": {"checkpoint_dir": checkpoint_dir, "grad_accum_steps": len(train),
+                                  "eval_score_higher_is_better": False, "validate_after_iters": 10**9,
+                                  "log_after_iters": 10**9, "max_num_epochs": 1, "max_num_iterations": 10}}
+            trainer = create_trainer(config, loaders={"train": train, "val": []})
+            torch.backends.cudnn.deterministic = True
+            try:
+                count_launches(launches, f"breadth_{name}_update",
+                               lambda: trainer._update(tuple(train), RunningAverage()))
+            finally:
+                torch.backends.cudnn.deterministic = False
+            results[name] = ({n: p.grad.detach().double() for n, p in trainer.model.named_parameters()},
+                             {n: p.detach().double() for n, p in trainer.model.named_parameters()})
+            del trainer
+    expect_launches(launches, "breadth_accum_update", k2=(2 * n_conv, 0), k3=(2 * n_conv, 0))
+    expect_launches(launches, "breadth_batch2_update", k2=(n_conv, 0), k3=(n_conv, 0))
+    (accum_grads, accum_params), (batch2_grads, batch2_params) = results["accum"], results["batch2"]
+    # relative to the step's max |g|: the first GroupNorm's weight gradient is
+    # ~1e-3 of it (ROADMAP Queue 3, small gradients), where another summation
+    # order shows as a large share of that tensor's own max
+    g_max = max(g.abs().max().item() for g in batch2_grads.values())
+    grad_gap = max(((accum_grads[k] - g).abs().max().item() / g_max, k) for k, g in batch2_grads.items())
+    per_tensor = worst_rel(accum_grads, batch2_grads)
+    param_gap = max((accum_params[k] - v).abs().max().item() for k, v in batch2_params.items())
+    param_tol = ACCUM_TOL * 0.05 * g_max
+    log(f"[28 accumulation] grad_accum_steps 2 over two batch-1 batches against one batch-2 step: launches "
+        f"{launches['breadth_accum_update']} against {launches['breadth_batch2_update']}; mean grads worst "
+        f"{grad_gap[0]:.3e} of the step's max|g| ({grad_gap[1]}; tol {ACCUM_TOL}), of the tensor's own "
+        f"{per_tensor[0]:.3e} ({per_tensor[1]}); parameters after the SGD update max|d| {param_gap:.3e} "
+        f"(tol {param_tol:.3e}: lr x {ACCUM_TOL} x max|g|)")
+    check(grad_gap[0] <= ACCUM_TOL, f"the accumulated update's grads differ from the batch-2 step's: {grad_gap}")
+    check(param_gap <= param_tol, f"the accumulated update's parameters differ from the batch-2 step's: {param_gap}")
+    del results, accum_grads, accum_params, batch2_grads, batch2_params
+
+    # (c) the confocal _tpu train config with its commented lines on, bf16
+    # with device augmentation: 4 updates and a validation, then a new trainer
+    # on the same config resumes (auto) for 2, against 6 uninterrupted updates;
+    # each epoch is one update of the 2 host batches
+    host = [(raw, np.ascontiguousarray(target[:, 1:])), (second[0], np.ascontiguousarray(second[1][:, 1:]))]
+
+    def run(checkpoint_dir, last_iteration, path, spy=None):
+        config = {"manual_seed": SEED, "device": "cuda", "model": {**MODEL, "dtype": "bfloat16"}, **TRAIN_SECTIONS,
+                  "loaders": copy.deepcopy(TPU_LOADERS),
+                  "trainer": {**BREADTH_TRAINER, "checkpoint_dir": checkpoint_dir,
+                              "eval_score_higher_is_better": False, "validate_after_iters": 4,
+                              "log_after_iters": 10**9, "max_num_epochs": 10**9,
+                              "max_num_iterations": last_iteration - 1}}
+        trainer = create_trainer(config, loaders={"train": host, "val": [val_batch]})
+        losses, criterion = [], trainer.loss_criterion
+
+        def recording(logits, target):
+            loss = criterion(logits, target)
+            if torch.is_grad_enabled():
+                losses.append(loss.item())
+            return loss
+
+        trainer.loss_criterion = recording
+        if spy is not None:
+            spy(trainer)
+        start = time.perf_counter()
+        count_launches(launches, path, trainer.fit)
+        trainer.loss_criterion = criterion
+        return trainer, losses, time.perf_counter() - start
+
+    params_seen = []
+
+    def record_params(trainer):
+        """The parameters at the start and before each EMA update, in float64."""
+        params = list(trainer.model.parameters())
+        params_seen.append([p.detach().double().clone() for p in params])
+        ema_step = trainer._ema_step
+
+        def spy():
+            params_seen.append([p.detach().double().clone() for p in params])
+            ema_step()
+
+        trainer._ema_step = spy
+
+    with tempfile.TemporaryDirectory() as full_dir, tempfile.TemporaryDirectory() as resume_dir:
+        torch.backends.cudnn.deterministic = True
+        try:
+            full, full_losses, full_s = run(full_dir, 6, "breadth_tpu_full_fit", record_params)
+            stopped, first_losses, first_s = run(resume_dir, 4, "breadth_tpu_stopped_fit")
+            resumed, rest_losses, rest_s = run(resume_dir, 6, "breadth_tpu_resumed_fit")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        # 2 microbatches an update, 14 bf16 K2 and 14 bf16 K3 each; a validation 14 K2
+        expect_launches(launches, "breadth_tpu_full_fit", k2=(0, 12 * n_conv + n_conv), k3=(0, 12 * n_conv))
+        expect_launches(launches, "breadth_tpu_stopped_fit", k2=(0, 8 * n_conv + n_conv), k3=(0, 8 * n_conv))
+        expect_launches(launches, "breadth_tpu_resumed_fit", k2=(0, 4 * n_conv), k3=(0, 4 * n_conv))
+        state = load_checkpoint(Path(resume_dir) / "last_checkpoint.pytorch")
+        names = [n for n, _ in stopped.model.named_parameters()]
+        check(resumed.num_iterations == 6 and len(first_losses) == 8 and len(rest_losses) == 4
+              and len(full_losses) == 12, f"the resumed run: iteration {resumed.num_iterations}, "
+              f"{len(first_losses)} + {len(rest_losses)} losses against {len(full_losses)}")
+        check(sorted(state.get("ema_state_dict", {})) == sorted(names)
+              and set(state.get("torch_rng_state", {})) == {"cpu", "cuda", "augment"},
+              f"the checkpoint lacks the EMA or the RNG states: {sorted(state)}")
+        resume_gap = max(abs(a - b) for a, b in zip(first_losses + rest_losses, full_losses))
+        why = "equal" if resume_gap == 0 else "not bitwise: a summation order that the deterministic flag does not fix"
+        log(f"[28 _tpu config] ema_decay 0.999, grad_accum_steps 2, resume: auto, bf16, device augmentation: "
+            f"6 updates in {full_s:.2f} s (launches {launches['breadth_tpu_full_fit']}); 4 updates + 1 validation in "
+            f"{first_s:.2f} s, then a new trainer resumed for 2 in {rest_s:.2f} s (launches "
+            f"{launches['breadth_tpu_resumed_fit']}); microbatch losses stopped + resumed against uninterrupted: "
+            f"max|d| {resume_gap:.3e} (tol {RESUME_TOL}; {why}); losses {', '.join(f'{v:.5f}' for v in full_losses)}; "
+            f"the checkpoint carries ema_state_dict ({len(names)} tensors) and torch_rng_state "
+            f"{sorted(state['torch_rng_state'])}")
+        check(resume_gap <= RESUME_TOL, f"the resumed run's losses differ from the uninterrupted run's by {resume_gap}")
+        del stopped, resumed, state
+
+        # the EMA against a float64 recurrence over the parameters after each update
+        decay = BREADTH_TRAINER["ema_decay"]
+        check(len(params_seen) == 7, f"{len(params_seen) - 1} EMA updates in 6 optimizer updates")
+        want = params_seen[0]
+        for params in params_seen[1:]:
+            want = [decay * e + (1 - decay) * p for e, p in zip(want, params)]
+        p_max = max(p.abs().max().item() for p in params_seen[-1])
+        ema_err = max((e.double() - w).abs().max().item() for e, w in zip(full.ema, want)) / p_max
+        params_seen.clear()
+        del want
+
+        # one update (2 augmented bf16 microbatches) and the EMA's share of it
+        group = tuple(host)
+        update_ms = timed_ms(lambda: full._update(group, RunningAverage()))
+        ema_ms = timed_ms(full._ema_step)
+        log(f"[28 EMA] f32 EMA against a float64 recurrence over 6 updates: max|d| / max|p| {ema_err:.3e} "
+            f"(tol {EMA_TOL}); one update {update_ms:.2f} ms, the EMA {ema_ms:.3f} ms "
+            f"({100 * ema_ms / update_ms:.2f}% of it) ({smi})")
+        check(ema_err <= EMA_TOL, f"the EMA differs from its float64 recurrence by {ema_err}")
+
+        # (d) async checkpointing: how long the save blocks the loop, and the
+        # file against the state at the save although the next update ran
+        blocked, drained = {}, {}
+        for mode in (True, False):
+            full.async_checkpoint = mode
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            full._save_checkpoint(is_best=False)
+            blocked[mode] = (time.perf_counter() - start) * 1e3
+            at_save = {k: {n: t.detach().cpu().clone() for n, t in full._checkpoint_state()[k].items()}
+                       for k in ("model_state_dict", "ema_state_dict")}
+            full._update(group, RunningAverage())
+            full._ema_step()
+            start = time.perf_counter()
+            full._wait_checkpoint()
+            drained[mode] = (time.perf_counter() - start) * 1e3
+            written = load_checkpoint(Path(full_dir) / "last_checkpoint.pytorch")
+            same = all(torch.equal(written[k][n], t) for k, tensors in at_save.items() for n, t in tensors.items())
+            check(same, f"async_checkpoint={mode}: the written file is not the state at the save")
+        log(f"[28 async checkpoint] _save_checkpoint blocks the loop {blocked[True]:.2f} ms with async_checkpoint, "
+            f"{blocked[False]:.2f} ms without; after the next update the background write still took "
+            f"{drained[True]:.2f} ms to join; the file equals the state at the save in both modes ({smi})")
+        del full
+    torch.cuda.empty_cache()
+    return launches
+
+
 def synthetic_batch(rs):
     """One (raw, target) batch of the confocal recipe's shape: an instance
     label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
@@ -2350,7 +2612,10 @@ def main():
     # 27. the 3D model options at the confocal width
     options = options_phase(device, train_batch, smi)
 
-    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options}
+    # 28. the trainer's breadth: remat, accumulation, EMA, resume, async checkpoints
+    breadth = breadth_phase(device, (train_batch, val_batch), smi)
+
+    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}

@@ -25,6 +25,9 @@ it, except the norms, which compute in float32 on a float32 copy of a bfloat16
 input and cast back (JAX blocks.py:126-128, 226-236).
 """
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -50,11 +53,38 @@ class GroupNorm(_Float32Norm, nn.GroupNorm):
     pass
 
 
-class BatchNorm3d(_Float32Norm, nn.BatchNorm3d):
+# set while `model.remat` recomputes a level in backward (`recomputing`)
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While a checkpointed level runs again in backward: BatchNorm normalizes
+    with the batch statistics as in the forward, but its running statistics
+    and batch count stay as the forward left them, so they move once a step."""
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+class _BatchNorm(_Float32Norm):
+    def forward(self, x):
+        if self.training and getattr(_recompute, "active", False):
+            # throwaway copies of the running statistics: the same call as
+            # the forward's, so autograd saves the same tensors
+            x32 = x.float() if x.dtype == torch.bfloat16 else x
+            return F.batch_norm(x32, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias,
+                                True, 0.0, self.eps).to(x.dtype)
+        return super().forward(x)
+
+
+class BatchNorm3d(_BatchNorm, nn.BatchNorm3d):
     pass
 
 
-class BatchNorm2d(_Float32Norm, nn.BatchNorm2d):
+class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
     pass
 
 

@@ -13,13 +13,22 @@ is cast to bf16, the parameters stay float32 and each layer casts them to its
 input's dtype where it uses them (so state dicts and checkpoints are the f32
 ones), GroupNorm and BatchNorm compute in float32 on a float32 copy and cast
 back, and the logits come back in float32.
+
+`model.remat: true` checkpoints each encoder and decoder level in training
+(JAX unet.py:76-79 `nn.remat`): the level keeps only its inputs and runs again
+in backward, its 3x3x3 convs on the kernels too. Dropout draws the same masks
+on the recompute (`preserve_rng_state`), and BatchNorm's running statistics
+move in the forward alone (`blocks.recomputing`).
 """
+
+import contextlib
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
-from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder, conv_layer
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_TRAINER, not_ported, number_of_features_per_level
+from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder, conv_layer, recomputing
+from pytorch3dunet_tpu_torch.utils.misc import number_of_features_per_level
 
 # `model.dtype` values of the JAX get_model -> the compute dtype (None: float32)
 _DTYPES = {None: None, "float32": None, "fp32": None, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
@@ -59,8 +68,9 @@ class UNet3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, final_sigmoid: bool = True, f_maps=64,
                  layer_order: str = "gcr", num_groups: int = 8, num_levels: int | None = None,
                  is_segmentation: bool = True, conv_kernel_size=3, pool_kernel_size=2, conv_padding=1,
-                 conv_upscale: int = 2, dropout_prob=0.1, upsample="default", dtype=None):
+                 conv_upscale: int = 2, dropout_prob=0.1, upsample="default", dtype=None, remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         if isinstance(f_maps, int):
             f_maps = number_of_features_per_level(f_maps, num_levels=num_levels or self.default_num_levels)
         assert isinstance(f_maps, (list, tuple)) and len(f_maps) > 1, "Required at least 2 levels in the U-Net"
@@ -89,18 +99,29 @@ class UNet3D(nn.Module):
     def forward(self, x):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
+        level = _remat_level if self.remat and self.training and torch.is_grad_enabled() else _run_level
         encoders_features = []
         for encoder in self.encoders:
-            x = encoder(x)
+            x = level(encoder, x)
             encoders_features.insert(0, x)
         # the bottleneck output is the decoder input, not a skip
         for decoder, encoder_features in zip(self.decoders, encoders_features[1:]):
-            x = decoder(encoder_features, x)
+            x = level(decoder, encoder_features, x)
         logits = self.final_conv(x).float()
         if not self.is_segmentation:
             return logits, logits
         probs = torch.sigmoid(logits) if self.final_sigmoid else torch.softmax(logits, dim=1)
         return probs, logits
+
+
+def _run_level(module, *inputs):
+    return module(*inputs)
+
+
+def _remat_level(module, *inputs):
+    """The level kept as its inputs and run again in backward."""
+    return torch.utils.checkpoint.checkpoint(module, *inputs, use_reentrant=False,
+                                             context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class ResidualUNet3D(UNet3D):
@@ -140,14 +161,11 @@ _MODELS = {cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3
 
 def get_model(model_config: dict) -> UNet3D:
     """Builds the model named by `model_config['name']` from the JAX
-    package's model schema (pytorch3dunet_tpu/models/unet.py `get_model`).
-    `remat: true` is refused until "Trainer breadth" ports it."""
+    package's model schema (pytorch3dunet_tpu/models/unet.py `get_model`)."""
     config = dict(model_config)
     name = config.pop("name")
     if name not in _MODELS:
         raise ValueError(f"Unknown model {name!r}")
-    if config.pop("remat", False):
-        raise not_ported(f"model.remat={model_config['remat']!r}", ITEM_TRAINER)
     return _MODELS[name](**config)
 
 

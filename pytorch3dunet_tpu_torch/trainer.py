@@ -1,13 +1,16 @@
 """Iteration-driven trainer of the port (pytorch3dunet_tpu/trainer.py without jax).
 
 The workflow of the JAX trainer and of the reference pytorch-3dunet
-UNetTrainer: epochs counted in iterations, a step of forward, loss on the
+UNetTrainer: epochs counted in iterations, an update of forward, loss on the
 logits, `zero_grad` / `backward` / `step`; validation every
 `validate_after_iters` under `torch.no_grad()`, scored by the metric's device
 twin where it has one (Dice, MeanIoU, MSE, PSNR) and by the host numpy metric
-of `metrics.py` otherwise; ReduceLROnPlateau stepped on the eval score; last/best checkpoints;
-stop at `max_num_iterations` or when the lr falls below 1e-6; `resume` and
-`pre_trained`.
+of `metrics.py` otherwise; the lr scheduler stepped at each validation (the
+plateau one on the eval score); last/best checkpoints; stop at
+`max_num_iterations` or when the lr falls below 1e-6; `resume` (a path, or
+`auto`: `<checkpoint_dir>/last_checkpoint.pytorch` when it exists) and
+`pre_trained` (a port or reference torch checkpoint, or a JAX npz, whose raw
+`model_state_dict` it takes).
 
 On CUDA every 3x3x3 conv of the step runs on the hand-written kernels
 (ops/conv3d.py): the forward on K2 (on K1 for F >= 64 under
@@ -18,41 +21,63 @@ pipeline and its label engineering leave the host loaders
 (`ops.augment.split_device_transforms`) and run on each uploaded train batch
 before the forward (`ops.augment.DeviceAugmenter`), drawn from two generators
 seeded from `manual_seed`: scalars from a CPU one, fields from one on the
-device. A resumed run starts them afresh. With `model.dtype: bfloat16` the
-model computes in bf16 (models/unet.py) while the parameters, their gradients,
-Adam's moments and the checkpoints stay float32; validation runs the same
-bf16 model.
+device. With `model.dtype: bfloat16` the model computes in bf16
+(models/unet.py) while the parameters, their gradients, the optimizer's
+moments and the checkpoints stay float32; validation runs the same bf16 model.
+
+The JAX trainer's other options (JAX trainer.py:99-105):
+- `grad_accum_steps: k`: k loader batches make one update from the mean of
+  their gradients; a trailing group shorter than k is dropped. Losses and
+  voxels count per microbatch, logging reads the last one, BatchNorm's running
+  statistics move per microbatch; the EMA and the scheduler follow updates.
+- `ema_decay: d`: a float32 copy of the parameters, e = d * e + (1 - d) * p
+  after each update. Validation, the best checkpoint and the checkpoints'
+  `ema_state_dict` use it (BatchNorm buffers stay the live model's); a resume
+  restores it.
+- TensorBoard (tensorboardX, when installed): the JAX trainer's scalars, images
+  and histograms under its tags at its iterations, the images formatted by
+  `trainer.tensorboard_formatter` (utils/tb.py).
+- Checkpoints carry `torch_rng_state`: torch's CPU RNG, the device's CUDA RNG
+  and the augmentation generators. A resume restores them, so its dropout and
+  augmentation draws continue the interrupted run's (JAX `rng_state`).
+- `async_checkpoint: true` copies the state on the device and writes it on one
+  background thread; a save first waits for the one before, and `fit` drains
+  the writer.
+- `profile_dir`: a `torch.profiler` trace from the first `train()` to the end
+  of `fit`. `log_params`: a histogram of each parameter and of its gradient at
+  each log iteration.
+`async_steps` changes nothing but timing in JAX; the port reads every loss.
 
 A 2D model (UNet2D, ResidualUNet2D) trains on the (N, C, 1, H, W) batches of
 depth-1 patches: each batch loses its singleton z after the device
 augmentation and before the forward, and the host metric gets it back
 (JAX trainer.py:454-465, metrics.py `to_metric_layout`).
 
-Not ported yet, and refused when a config asks for them: gradient
-accumulation, EMA weights, `resume: auto`, profiler traces and parameter
-histograms (ROADMAP Queue 1, "Trainer breadth") and spatial sharding
-("Parallelism"). TensorBoard is "Trainer breadth" too: scalars go to the log.
-Checkpoints are written synchronously, so `async_checkpoint` and `async_steps`
-change nothing but timing and are only logged.
+Spatial sharding is not ported yet ("Parallelism") and is refused.
 """
 
+import contextlib
 import copy
+import itertools
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 
 import numpy as np
 import torch
 
 from pytorch3dunet_tpu_torch.metrics import device_metric_fn, get_evaluation_metric
-from pytorch3dunet_tpu_torch.utils.misc import (ITEM_PARALLELISM, ITEM_TRAINER, RunningAverage, get_logger,
-                                                not_ported, roadmap)
+from pytorch3dunet_tpu_torch.utils.misc import ITEM_PARALLELISM, RunningAverage, get_logger, not_ported
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
 from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d
 from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter, split_device_transforms
-from pytorch3dunet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer
+from pytorch3dunet_tpu_torch.utils.checkpoint import LAST_CHECKPOINT, load_checkpoint, save_checkpoint
+from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer, is_plateau
+from pytorch3dunet_tpu_torch.utils.tb import TensorboardFormatter, open_writer
+from pytorch3dunet_tpu_torch.utils.weights import load_weights
 
 logger = get_logger("UNetTrainer")
 
@@ -98,26 +123,23 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
     lr_scheduler = create_lr_scheduler(config.get("lr_scheduler", None), optimizer)
 
     trainer_config = dict(config["trainer"])
-    if trainer_config.pop("tensorboard_formatter", None) is not None:
-        logger.info(f"trainer.tensorboard_formatter: TensorBoard is not ported yet ({roadmap(ITEM_TRAINER)}); "
-                    "scalars go to the log")
+    formatter = TensorboardFormatter(**(trainer_config.pop("tensorboard_formatter", None) or {}))
     return UNetTrainer(model=model, optimizer=optimizer, lr_scheduler=lr_scheduler, loss_criterion=loss_criterion,
-                       eval_criterion=eval_criterion, loaders=loaders, device=device, **augment, **trainer_config)
+                       eval_criterion=eval_criterion, loaders=loaders, device=device, tensorboard_formatter=formatter,
+                       **augment, **trainer_config)
 
 
-def _refuse_unported(grad_accum_steps, ema_decay, resume, profile_dir, log_params, spatial_sharding):
-    """Raises for the trainer options whose results or files the port does not produce yet."""
-    refused = {
-        "grad_accum_steps": (int(grad_accum_steps) > 1, ITEM_TRAINER),
-        "ema_decay": (ema_decay is not None, ITEM_TRAINER),
-        "resume": (resume == "auto", ITEM_TRAINER),
-        "profile_dir": (bool(profile_dir), ITEM_TRAINER),
-        "log_params": (bool(log_params), ITEM_TRAINER),
-        "spatial_sharding": (bool(spatial_sharding), ITEM_PARALLELISM),
-    }
-    for key, (is_set, item) in refused.items():
-        if is_set:
-            raise not_ported(f"trainer.{key}", item)
+
+
+def _map_tensors(obj, fn):
+    """`obj` (nested dicts, lists and tuples) with `fn` applied to every tensor."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_tensors(v, fn) for v in obj)
+    return obj
 
 
 class UNetTrainer:
@@ -128,13 +150,15 @@ class UNetTrainer:
     def __init__(self, model, optimizer, lr_scheduler, loss_criterion, eval_criterion, loaders, checkpoint_dir,
                  max_num_epochs, max_num_iterations, validate_after_iters=200, log_after_iters=100,
                  validate_iters=None, num_iterations=1, num_epoch=0, eval_score_higher_is_better=True,
-                 skip_train_validation=False, resume=None, pre_trained=None, max_val_images=100, device=None,
-                 profile_dir=None, log_params=False, spatial_sharding=False, async_steps=8, grad_accum_steps=1,
-                 ema_decay=None, async_checkpoint=True, device_augmenter=None, augment_seed=None):
-        _refuse_unported(grad_accum_steps, ema_decay, resume, profile_dir, log_params, spatial_sharding)
-        logger.info(f"trainer.async_checkpoint={async_checkpoint}, async_steps={async_steps}: timing only; "
-                    f"the port saves synchronously and reads every step's loss; "
-                    f"max_val_images={max_val_images} applies to TensorBoard images, not ported yet")
+                 tensorboard_formatter=None, skip_train_validation=False, resume=None, pre_trained=None,
+                 max_val_images=100, device=None, profile_dir=None, log_params=False, spatial_sharding=False,
+                 async_steps=8, grad_accum_steps=1, ema_decay=None, async_checkpoint=True, device_augmenter=None,
+                 augment_seed=None):
+        if spatial_sharding:
+            raise not_ported("trainer.spatial_sharding", ITEM_PARALLELISM)
+        if ema_decay is not None and not 0.0 < float(ema_decay) < 1.0:
+            raise ValueError(f"trainer.ema_decay must be in (0, 1); got {ema_decay}")
+        logger.info(f"trainer.async_steps={async_steps}: timing only; the port reads every step's loss")
         self.model = model
         self.optimizer = optimizer
         self.scheduler = lr_scheduler
@@ -149,9 +173,16 @@ class UNetTrainer:
         self.validate_iters = validate_iters
         self.eval_score_higher_is_better = eval_score_higher_is_better
         self.skip_train_validation = skip_train_validation
+        self.max_val_images = max_val_images
+        self.tensorboard_formatter = tensorboard_formatter or TensorboardFormatter()
         self.device = resolve_device(device)
         self.num_iterations = num_iterations
         self.num_epochs = num_epoch
+        self.grad_accum_steps = max(1, int(grad_accum_steps))
+        self.ema_decay = None if ema_decay is None else float(ema_decay)
+        self.async_checkpoint = bool(async_checkpoint)
+        self.profile_dir = profile_dir
+        self.log_params = bool(log_params)
         self.device_augmenter = device_augmenter
         self.device_metric = device_metric_fn(eval_criterion)
         where = "on the device (2 scalars per batch read after the loop)" if self.device_metric else \
@@ -165,38 +196,86 @@ class UNetTrainer:
                     gen.seed()
                 else:
                     gen.manual_seed(augment_seed + i)
+        self._profiler = None
+        self._ckpt_executor = None
+        self._ckpt_future = None
+        self._step_voxels = RunningAverage()
 
         logger.info(f"eval_score_higher_is_better: {eval_score_higher_is_better}")
         self.best_eval_score = float("-inf") if eval_score_higher_is_better else float("+inf")
 
+        # the TensorBoard run directory, which copy_config writes the config into
+        run_dir = os.path.join(checkpoint_dir, "logs", datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
+        os.makedirs(run_dir, exist_ok=True)
+        self.writer = open_writer(run_dir)
+
+        if resume == "auto":
+            # the same config restarts a killed run without editing the path in and out
+            auto_path = os.path.join(checkpoint_dir, LAST_CHECKPOINT)
+            resume = auto_path if os.path.exists(auto_path) else None
+            logger.info(f"resume: auto -> {'found ' + auto_path if resume else 'no checkpoint, starting fresh'}")
+        state = {}
         if resume is not None:
-            logger.info(f"Loading checkpoint '{resume}'...")
-            state = load_checkpoint(resume)
-            self.model.load_state_dict(state["model_state_dict"], strict=True)
-            if state.get("optimizer_state_dict") is not None:
-                self.optimizer.load_state_dict(state["optimizer_state_dict"])
-            else:
-                logger.warning("Checkpoint has no optimizer state; the optimizer starts fresh")
-            if state.get("best_eval_score") is not None:
-                self.best_eval_score = state["best_eval_score"]
-            self.num_iterations = state["num_iterations"]
-            self.num_epochs = state["num_epochs"]
-            self.checkpoint_dir = os.path.split(resume)[0]
-            logger.info(f"Checkpoint loaded from '{resume}'. Epoch: {self.num_epochs}. "
-                        f"Iteration: {self.num_iterations}. Best val score: {self.best_eval_score}.")
+            state = self._load_resume(resume)
         elif pre_trained is not None:
             logger.info(f"Loading pre-trained model from '{pre_trained}'...")
-            state = load_checkpoint(pre_trained)
-            self.model.load_state_dict(state.get("model_state_dict", state), strict=True)
+            # the raw weights, as the JAX trainer fine-tunes from model_state_dict
+            load_weights(self.model, pre_trained, ema=False)
             if not self.checkpoint_dir:
                 self.checkpoint_dir = os.path.split(pre_trained)[0]
 
-        # the run directory that copy_config writes the config into (the JAX
-        # trainer's TensorBoard run directory)
-        os.makedirs(os.path.join(self.checkpoint_dir, "logs", datetime.now().strftime("%Y-%m-%d_%H-%M-%S")),
-                    exist_ok=True)
+        self.ema = None
+        if self.ema_decay is not None:
+            logger.info(f"EMA of the weights enabled (decay={self.ema_decay}): validation and checkpoints use "
+                        "the averaged weights")
+            self.ema = [p.detach().float().clone() for p in self.model.parameters()]
+            if state.get("ema_state_dict"):
+                logger.info("Restoring EMA weights from the checkpoint")
+                for (name, _), e in zip(self.model.named_parameters(), self.ema):
+                    e.copy_(state["ema_state_dict"][name])
+        if state.get("torch_rng_state") is not None:
+            self._restore_rng(state["torch_rng_state"])
+
         n_params = sum(p.numel() for p in self.model.parameters() if p.requires_grad)
         logger.info(f"Number of learnable params {n_params}")
+
+    def _load_resume(self, path) -> dict:
+        """Restores the model, the optimizer and the counters of a port
+        checkpoint; returns its state for the EMA and the RNG states."""
+        logger.info(f"Loading checkpoint '{path}'...")
+        state = load_checkpoint(path)
+        self.model.load_state_dict(state["model_state_dict"], strict=True)
+        if state.get("optimizer_state_dict") is not None:
+            self.optimizer.load_state_dict(state["optimizer_state_dict"])
+        else:
+            logger.warning("Checkpoint has no optimizer state; the optimizer starts fresh")
+        if state.get("best_eval_score") is not None:
+            self.best_eval_score = state["best_eval_score"]
+        self.num_iterations = state["num_iterations"]
+        self.num_epochs = state["num_epochs"]
+        self.checkpoint_dir = os.path.split(path)[0]
+        logger.info(f"Checkpoint loaded from '{path}'. Epoch: {self.num_epochs}. "
+                    f"Iteration: {self.num_iterations}. Best val score: {self.best_eval_score}.")
+        return state
+
+    def _rng_state(self) -> dict:
+        """torch's CPU RNG, the device's CUDA RNG and the augmentation
+        generators: what dropout and the device augmentation draw from."""
+        state = {"cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            state["cuda"] = torch.cuda.get_rng_state(self.device)
+        if self.device_augmenter is not None:
+            state["augment"] = [gen.get_state() for gen in self.augment_generators]
+        return state
+
+    def _restore_rng(self, state: dict):
+        torch.set_rng_state(state["cpu"])
+        if self.device.type == "cuda" and "cuda" in state:
+            torch.cuda.set_rng_state(state["cuda"], self.device)
+        if self.device_augmenter is not None and "augment" in state:
+            for gen, gen_state in zip(self.augment_generators, state["augment"]):
+                gen.set_state(gen_state)
+        logger.info("Random streams restored from the checkpoint")
 
     def fit(self):
         try:
@@ -211,6 +290,16 @@ class UNetTrainer:
             logger.info("Interrupted: saving checkpoint before exiting")
             self._save_checkpoint(is_best=False)
             raise
+        finally:
+            # drain the background save (and raise its error), end the trace
+            self._wait_checkpoint()
+            if self._profiler is not None:
+                self._profiler.stop()
+                self._profiler = None
+                logger.info(f"Profiler trace written to {self.profile_dir}")
+            if self.writer is not None:
+                # drains tensorboardX's queue (flush does not); a later write reopens it
+                self.writer.close()
 
     def _prepare_batch(self, raw, target, augment: bool = False):
         """An NCDHW loader batch on the device. A train batch (`augment`) goes
@@ -245,43 +334,128 @@ class UNetTrainer:
         train_losses = RunningAverage()
         train_eval_scores = RunningAverage()
         self.model.train()
-        train_loader = self.loaders["train"]
-        if hasattr(train_loader, "set_epoch"):
-            # epoch-keyed shuffle: a resumed run replays this epoch's batch order
-            train_loader.set_epoch(self.num_epochs)
+        if self.profile_dir and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(
+                activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(self.profile_dir))
+            self._profiler.start()
 
-        for raw, target in train_loader:
+        for group in self._train_groups():
             logger.info(f"Training iteration [{self.num_iterations}/{self.max_num_iterations}]. "
                         f"Epoch [{self.num_epochs}/{self.max_num_epochs - 1}]")
-            inp, target = self._prepare_batch(raw, target, augment=True)
-            probs, logits = self.model(inp)
-            loss = self.loss_criterion(logits, target)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self.optimizer.step()
+            start = time.perf_counter()
+            raw, target_host, inp, target, probs = self._update(group, train_losses)
+            # N * D * H * W of the loader batches over the update's wall time
+            voxels = sum(int(np.prod(np.shape(r))) // np.shape(r)[1] for r, _ in group)
+            self._step_voxels.update(voxels / (time.perf_counter() - start))
+            if self.ema is not None:
+                self._ema_step()
             batch_size = inp.shape[0]
-            train_losses.update(loss.item(), batch_size)
 
             if self.num_iterations % self.validate_after_iters == 0:
                 eval_score = self.validate()
                 if self.scheduler is not None:
-                    self.scheduler.step(eval_score)
-                logger.info(f"learning_rate={self.optimizer.param_groups[0]['lr']} at {self.num_iterations}")
+                    if is_plateau(self.scheduler):
+                        self.scheduler.step(eval_score)
+                    else:
+                        self.scheduler.step()
+                self._log_lr()
                 self._save_checkpoint(self._is_best_eval_score(eval_score))
 
             if self.num_iterations % self.log_after_iters == 0:
-                if not self.skip_train_validation:
-                    # the target the network saw: after device augmentation
-                    # the host batch is the one before it
-                    score = self.eval_criterion(*self._metric_layout(probs, target))
-                    train_eval_scores.update(float(score), batch_size)
-                logger.info(f"Training stats. Loss: {train_losses.avg}. Evaluation score: {train_eval_scores.avg}")
-                self._log_stats("train", train_losses.avg, train_eval_scores.avg)
+                self._log_train(train_losses, train_eval_scores, batch_size, raw, target_host, inp, target, probs)
 
             if self.should_stop():
                 return True
             self.num_iterations += 1
         return False
+
+    def _train_groups(self):
+        """Tuples of `grad_accum_steps` loader batches, one per update; a
+        trailing group short of k is dropped (JAX trainer.py `_train_groups`)."""
+        train_loader = self.loaders["train"]
+        if hasattr(train_loader, "set_epoch"):
+            # epoch-keyed shuffle: a resumed run replays this epoch's batch order
+            train_loader.set_epoch(self.num_epochs)
+        it, k = iter(train_loader), self.grad_accum_steps
+        while True:
+            group = tuple(itertools.islice(it, k))
+            if len(group) < k:
+                if group:
+                    logger.info(f"Dropping trailing {len(group)} microbatch(es) short of grad_accum_steps={k} "
+                                f"at epoch end")
+                return
+            yield group
+
+    def _update(self, group, train_losses):
+        """One optimizer update from the group's microbatches: their gradients
+        summed by backward, divided by k (JAX `_accumulation_round`), then the
+        optimizer's step. Returns the last microbatch's (raw, target) as the
+        loader gave them and (input, target, probabilities) on the device."""
+        self.optimizer.zero_grad(set_to_none=True)
+        for raw, target_host in group:
+            inp, target = self._prepare_batch(raw, target_host, augment=True)
+            probs, logits = self.model(inp)
+            loss = self.loss_criterion(logits, target)
+            loss.backward()
+            train_losses.update(loss.item(), inp.shape[0])
+        if len(group) > 1:
+            torch._foreach_div_([p.grad for p in self.model.parameters() if p.grad is not None], len(group))
+        self.optimizer.step()
+        return raw, target_host, inp, target, probs
+
+    @torch.no_grad()
+    def _ema_step(self):
+        """e = d * e + (1 - d) * p over every parameter, in one pass."""
+        torch._foreach_lerp_(self.ema, [p.detach() for p in self.model.parameters()], 1.0 - self.ema_decay)
+
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """The EMA weights in the model while validating, the live ones back
+        after, also when validation raises. BatchNorm buffers stay the live
+        model's (JAX `_eval_variables`)."""
+        if self.ema is None:
+            yield
+            return
+        params = list(self.model.parameters())
+        live = [p.data for p in params]
+        for p, e in zip(params, self.ema):
+            p.data = e
+        try:
+            yield
+        finally:
+            for p, data in zip(params, live):
+                p.data = data
+
+    def _log_train(self, train_losses, train_eval_scores, batch_size, raw, target_host, inp, target, probs):
+        """The log iteration's stats, scalars, images and histograms, from the
+        last microbatch."""
+        out_np = None
+        if not self.skip_train_validation or self.writer is not None:
+            out_np, tar_np = self._metric_layout(probs, target)
+        if not self.skip_train_validation:
+            # the target the network saw: after device augmentation the host
+            # batch is the one before it
+            train_eval_scores.update(float(self.eval_criterion(out_np, tar_np)), batch_size)
+        logger.info(f"Training stats. Loss: {train_losses.avg}. Evaluation score: {train_eval_scores.avg}. "
+                    f"Throughput: {self._step_voxels.avg / 1e6:.2f} Mvoxels/s")
+        self._log_stats("train", train_losses.avg, train_eval_scores.avg)
+        if self.writer is None:
+            return
+        self.writer.add_scalar("train_voxels_per_sec", self._step_voxels.avg, self.num_iterations)
+        if self.device_augmenter is not None:
+            # the batch the network saw, not the host one before augmentation
+            raw_log, target_log = inp.cpu().numpy(), target.cpu().numpy()
+        else:
+            raw_log, target_log = np.asarray(raw), np.asarray(target_host)
+        self._log_images(raw_log, target_log, out_np, "train_")
+        if self.log_params:
+            for name, p in self.model.named_parameters():
+                self.writer.add_histogram(name, p.detach().cpu().numpy(), self.num_iterations)
+                if p.grad is not None:
+                    self.writer.add_histogram(name + "/grad", p.grad.cpu().numpy(), self.num_iterations)
 
     def should_stop(self) -> bool:
         """Stop when max iterations are exceeded or the lr decayed below 1e-6."""
@@ -294,25 +468,41 @@ class UNetTrainer:
             return True
         return False
 
+    def _val_image_indices(self) -> set:
+        """The validation batches whose images are logged: all of them up to
+        `max_val_images`, else a subset fixed by RandomState(42) (JAX
+        trainer.py:734-739); none without a writer."""
+        if self.writer is None:
+            return set()
+        n_val = len(self.loaders["val"])
+        if n_val <= self.max_val_images:
+            return set(range(n_val))
+        return set(np.random.RandomState(42).choice(n_val, size=self.max_val_images, replace=False).tolist())
+
     def validate(self) -> float:
-        """Loss and eval score averaged over the validation batches. With a
-        device twin of the eval metric (`metrics.device_metric_fn`) both stay
-        0-d device tensors until the loop has ended, so the loop makes no host
-        sync (JAX trainer.py `validate`); otherwise each batch's probabilities
-        go to the host metric."""
+        """Loss and eval score averaged over the validation batches, with the
+        EMA weights when they are on. With a device twin of the eval metric
+        (`metrics.device_metric_fn`) both stay 0-d device tensors until the
+        loop has ended, so the loop makes no host sync (JAX trainer.py
+        `validate`); a batch whose images are logged, and every batch without
+        a twin, goes to the host metric."""
         logger.info("Validating...")
+        indices = self._val_image_indices()
         pending = []
         self.model.eval()
         try:
-            with torch.no_grad():
-                for i, (raw, target) in enumerate(self.loaders["val"]):
-                    inp, target = self._prepare_batch(raw, target)
+            with torch.no_grad(), self._eval_weights():
+                for i, (raw, target_host) in enumerate(self.loaders["val"]):
+                    inp, target = self._prepare_batch(raw, target_host)
                     probs, logits = self.model(inp)
                     loss = self.loss_criterion(logits, target)
-                    if self.device_metric is not None:
+                    if self.device_metric is not None and i not in indices:
                         score = self.device_metric(probs, target)
                     else:
-                        score = float(self.eval_criterion(*self._metric_layout(probs, target)))
+                        out_np, tar_np = self._metric_layout(probs, target)
+                        score = float(self.eval_criterion(out_np, tar_np))
+                        if i in indices:
+                            self._log_images(np.asarray(raw), np.asarray(target_host), out_np, f"val_{i}_")
                     pending.append((loss, score, inp.shape[0]))
                     if self.validate_iters is not None and self.validate_iters <= i:
                         break
@@ -342,19 +532,68 @@ class UNetTrainer:
             self.best_eval_score = eval_score
         return is_best
 
-    def _save_checkpoint(self, is_best: bool):
-        path = os.path.join(self.checkpoint_dir, "last_checkpoint.pytorch")
-        logger.info(f"Saving checkpoint to '{path}'")
-        save_checkpoint({
+    def _checkpoint_state(self) -> dict:
+        """The checkpoint's content, its tensors the live ones."""
+        state = {
             "num_epochs": self.num_epochs + 1,
             # the save runs after this iteration's update, so the next
             # iteration is the resume point (as in the JAX trainer)
             "num_iterations": self.num_iterations + 1,
-            "model_state_dict": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+            "model_state_dict": self.model.state_dict(),
             "optimizer_state_dict": self.optimizer.state_dict(),
             "best_eval_score": float(self.best_eval_score),
-        }, is_best, checkpoint_dir=self.checkpoint_dir)
+            "torch_rng_state": self._rng_state(),
+        }
+        if self.ema is not None:
+            # the reference's names; the port's predict CLI prefers these weights
+            state["ema_state_dict"] = {name: e for (name, _), e in zip(self.model.named_parameters(), self.ema)}
+        return state
+
+    def _wait_checkpoint(self):
+        """Joins the background save in flight, raising its error."""
+        if self._ckpt_future is not None:
+            future, self._ckpt_future = self._ckpt_future, None
+            future.result()
+
+    def _save_checkpoint(self, is_best: bool):
+        # one save at a time: a new one first waits for the last (which also
+        # orders the last/best file writes)
+        self._wait_checkpoint()
+        logger.info(f"Saving checkpoint to '{os.path.join(self.checkpoint_dir, LAST_CHECKPOINT)}'")
+        state, checkpoint_dir = self._checkpoint_state(), self.checkpoint_dir
+        if not self.async_checkpoint:
+            save_checkpoint(_map_tensors(state, lambda t: t.detach().cpu()), is_best, checkpoint_dir=checkpoint_dir)
+            return
+        # the next update changes the parameters and the optimizer's moments in
+        # place: the thread writes copies taken now, on the device
+        snapshot = _map_tensors(state, lambda t: t.detach().clone())
+        if self._ckpt_executor is None:
+            self._ckpt_executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint")
+        self._ckpt_future = self._ckpt_executor.submit(
+            lambda: save_checkpoint(_map_tensors(snapshot, lambda t: t.cpu()), is_best, checkpoint_dir=checkpoint_dir))
+
+    def _log_lr(self):
+        lr = self.optimizer.param_groups[0]["lr"]
+        logger.info(f"learning_rate={lr} at {self.num_iterations}")
+        if self.writer is not None:
+            self.writer.add_scalar("learning_rate", lr, self.num_iterations)
 
     def _log_stats(self, phase: str, loss_avg: float, eval_score_avg: float):
         logger.info(f"{phase}_loss_avg={loss_avg} {phase}_eval_score_avg={eval_score_avg} "
                     f"at iteration {self.num_iterations}")
+        if self.writer is not None:
+            self.writer.add_scalar(f"{phase}_loss_avg", loss_avg, self.num_iterations)
+            self.writer.add_scalar(f"{phase}_eval_score_avg", eval_score_avg, self.num_iterations)
+
+    def _log_images(self, inputs, targets, predictions, prefix: str):
+        """Middle-slice images of NC(D)HW numpy batches, under the JAX tags; a
+        2D model's batches get their singleton z back first (JAX
+        trainer.py:899-936)."""
+        batches = {"inputs": inputs, "targets": targets, "predictions": predictions}
+        if is_model_2d(self.model):
+            # (N, C, H, W) -> (N, C, 1, H, W); an (N, H, W) class map -> (N, 1, H, W)
+            batches = {name: b[:, :, None] if b.ndim == 4 else b[:, None] if b.ndim == 3 else b
+                       for name, b in batches.items()}
+        for name, batch in batches.items():
+            for tag, image in self.tensorboard_formatter(name, batch):
+                self.writer.add_image(prefix + tag, image, self.num_iterations)

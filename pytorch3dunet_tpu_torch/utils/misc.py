@@ -75,7 +75,6 @@ def get_class(class_name: str, modules: list[str]) -> type:
 # The ROADMAP.md Queue 1 items that the port's refusals name, by title: a
 # re-anchor renumbers the queue but keeps the titles
 # (tests/test_torch_port_host.py holds each to a live item of ROADMAP.md).
-ITEM_TRAINER = "Trainer breadth"
 ITEM_PARALLELISM = "Parallelism"
 
 

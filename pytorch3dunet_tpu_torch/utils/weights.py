@@ -14,6 +14,10 @@ flax tree of the port model's own state dict (`utils/interop.py`) names and
 orders the leaves, and the EMA weights (`ema_state_dict`, the params leaves of
 a run with `trainer.ema_decay`) replace the params when present, as
 `predict3dunet` predicts with them (JAX `predict.py` `load_model_variables`).
+A port checkpoint of such a run carries its EMA weights as `ema_state_dict`,
+which `load_weights` prefers the same way. The trainer's `pre_trained` asks
+for the raw weights instead (`ema=False`), as JAX `train3dunet` fine-tunes
+from a checkpoint's `model_state_dict`.
 """
 
 import io
@@ -82,10 +86,10 @@ def _restore(template: list[tuple[str, np.ndarray]], leaves: list[np.ndarray], w
     return restored
 
 
-def load_jax_checkpoint(model: torch.nn.Module, path) -> bool:
-    """Loads a JAX npz checkpoint into `model`: the EMA weights when it
-    carries them, else `model_state_dict`. Returns whether the EMA weights
-    were used."""
+def load_jax_checkpoint(model: torch.nn.Module, path, ema: bool = True) -> bool:
+    """Loads a JAX npz checkpoint into `model`: its EMA weights when it
+    carries them and `ema`, else `model_state_dict`. Returns whether the EMA
+    weights were used."""
     state = read_jax_checkpoint(path)
     own = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
     params = tree_leaves_with_paths(torch_state_dict_to_params(own))
@@ -93,7 +97,7 @@ def load_jax_checkpoint(model: torch.nn.Module, path) -> bool:
     # jax.tree_util orders the collections of {'batch_stats', 'params'} by key too
     template = [(f"batch_stats/{p}", v) for p, v in batch_stats] + [(f"params/{p}", v) for p, v in params]
     variables = tree_from_paths(_restore(template, state["model_state_dict"], f"{path}: model_state_dict"))
-    used_ema = bool(state.get("ema_state_dict"))
+    used_ema = ema and bool(state.get("ema_state_dict"))
     if used_ema:
         variables["params"] = tree_from_paths(_restore(params, state["ema_state_dict"], f"{path}: ema_state_dict"))
         logger.info("Checkpoint carries EMA weights (trainer.ema_decay): predicting with them")
@@ -101,14 +105,18 @@ def load_jax_checkpoint(model: torch.nn.Module, path) -> bool:
     return used_ema
 
 
-def load_weights(model: torch.nn.Module, path) -> None:
+def load_weights(model: torch.nn.Module, path, ema: bool = True) -> bool:
     """Loads a JAX npz checkpoint (`load_jax_checkpoint`) or a torch-format
     checkpoint (a bare state dict or one under 'model_state_dict') into
-    `model` with strict key matching."""
+    `model` with strict key matching. With `ema`, a checkpoint's EMA weights
+    replace the parameters when it carries them. Returns whether they did."""
     if is_jax_checkpoint(path):
-        load_jax_checkpoint(model, path)
-        return
+        return load_jax_checkpoint(model, path, ema=ema)
     state = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_state_dict" in state:
-        state = state["model_state_dict"]
-    model.load_state_dict(state, strict=True)
+    weights = state.get("model_state_dict", state)
+    used_ema = ema and bool(state.get("ema_state_dict"))
+    if used_ema:
+        weights = {**weights, **state["ema_state_dict"]}
+        logger.info("Checkpoint carries EMA weights (trainer.ema_decay): predicting with them")
+    model.load_state_dict(weights, strict=True)
+    return used_ema

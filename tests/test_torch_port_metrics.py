@@ -114,7 +114,10 @@ def _trainer(tmp_path, eval_metric):
               "loss": {"name": "CrossEntropyLoss"}, "eval_metric": eval_metric,
               "optimizer": {"learning_rate": 2e-4},
               "trainer": {"checkpoint_dir": str(tmp_path), "validate_after_iters": 1, "log_after_iters": 1,
-                          "max_num_epochs": 1, "max_num_iterations": 1}}
+                          "max_num_epochs": 1, "max_num_iterations": 1,
+                          # no validation images: those batches go to the host metric
+                          # (JAX test_trainer.py `test_device_metric_validation_path`)
+                          "max_val_images": 0}}
     return create_trainer(config, loaders={"train": [], "val": val})
 
 

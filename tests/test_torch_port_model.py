@@ -93,9 +93,3 @@ def test_channel_schedule_of_the_confocal_model():
              if isinstance(m, torch.nn.Conv3d) and m.kernel_size == (3, 3, 3)]
     assert convs == [(1, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256),
                      (384, 128), (128, 128), (192, 64), (64, 64), (96, 32), (32, 32)]
-
-
-@pytest.mark.parametrize("key,value", [("remat", True)])
-def test_unported_options_raise(key, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model({**BASE, "out_channels": 1, key: value})
