@@ -172,7 +172,27 @@ phases 24-26 assert 0 launches of K1, K2 and K3:
      updates; the checkpoint's EMA and RNG states; the EMA against a float64
      recurrence; one update's time and the EMA's share; (d) how long the save
      blocks the loop with `async_checkpoint` on and off, and the written file
-     against the state at the save.
+     against the state at the save;
+ 29. conversion, export and serving of the confocal UNet3D at full width
+     (seeded random weights): (a) `torch.library.opcheck` of the conv's custom
+     op `pytorch3dunet_tpu_torch::conv3d_fwd` on CUDA for each variant and
+     dtype, one eager forward through it (14 K2) against the plain conv; (b)
+     the serving forward with `standardize` inside exported on the card
+     (`export.py`, f32 and bf16, patch 112x240x240, symbolic batch), called at
+     batch 1 and 2: 14 K2 a forward inside the artifact, within 1e-6 of the
+     eager model; the export's seconds, the artifact's MB, its forward
+     against the eager forward; (c) the weights written as a JAX npz, read
+     back, converted to torch and back (`convert.py`), bitwise; (d)
+     `ServingSession` and `make_server` on 127.0.0.1 from that npz with the
+     confocal test config (patch 80x170x170, halo 16x32x32, Standardize with
+     global_normalization) on phase 4's volume: POST /predict bitwise
+     `predict_array`, ?output=segmentation its `_to_segmentation`; request
+     latency against predict_array, 4 concurrent clients, the warm-up with a
+     cold and a warm kernel build cache; (e) the UNet2D of the 2D confocal
+     test config under --batch-planes 24: 6 concurrent requests of 4 planes
+     of 1024x1024 and 16 of one 512x512 plane, at least one batched dispatch
+     in each, each within 3e-5 of its direct prediction; each mix's wall time
+     with the micro-batcher on and off.
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -381,6 +401,18 @@ ANISOTROPIC_3D = {"conv_kernel_size": [1, 3, 3], "conv_padding": [0, 1, 1]}
 REMAT_TOL, ACCUM_TOL, EMA_TOL, RESUME_TOL = 1e-5, 1e-4, 1e-6, 1e-4
 # the three commented lines of resources/3DUnet_confocal_boundary_tpu/train_config.yml
 BREADTH_TRAINER = {"ema_decay": 0.999, "grad_accum_steps": 2, "resume": "auto"}
+# phase 29: the custom op's opcheck shape; the exported patch, the halo'd
+# 112 x 234 x 234 patch rounded up to the pool factor 8, and the artifact
+# against the eager model (the same kernels in the same order: expect 0);
+# requests timed, concurrent clients, and the 2D micro-batching of
+# resources/2DUnet_confocal_boundary/test_config.yml under --batch-planes 24
+# for requests of 4 planes of 1024x1024 and of one 512x512 plane, each result
+# against its direct prediction (JAX tests/test_serve.py:294)
+OPCHECK_SHAPE, OPCHECK_F = (1, 4, 9, 10, 16), 64
+EXPORT_PATCH, EXPORT_TOL = (112, 240, 240), 1e-6
+SERVE_RUNS, SERVE_CLIENTS = 3, 4
+SERVE_BATCH_PLANES, SERVE_2D_CLIENTS, SERVE_2D_PLANES, SERVE_2D_TOL = 24, 6, 4, 3e-5
+SERVE_1P_CLIENTS = 16
 # H100 SXM peaks (NVIDIA's data sheet, dense): f32 on the CUDA cores, HBM
 # bandwidth, TF32 and bf16 on the tensor cores
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
@@ -2219,6 +2251,312 @@ def breadth_phase(device, batches, smi):
     return launches
 
 
+def post_npy(base, volume, query="", timeout=600):
+    """POSTs `volume` as .npy bytes to the server's /predict; returns the
+    .npy answer."""
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, volume)
+    request = urllib.request.Request(f"{base}/predict{query}", data=buf.getvalue(), method="POST",
+                                     headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(request, timeout=timeout) as response:
+        return np.load(io.BytesIO(response.read()), allow_pickle=False)
+
+
+def serving_phase(device, volume, smi):
+    """Phase 29: checkpoint conversion, export and serving of the confocal
+    UNet3D at full width (seeded random weights): (a) the conv's custom op
+    checked by `torch.library.opcheck` and one eager forward through it; (b)
+    the serving forward exported on the card in f32 and bf16 with a symbolic
+    batch, called at batch 1 and 2 against the eager model; (c) the weights
+    through the npz writer and `convert` both ways; (d) the HTTP server on
+    phase 4's volume against `predict_array`; (e) the 2D confocal UNet2D's
+    micro-batching. Returns the launches of each path by kernel and dtype."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pytorch3dunet_tpu_torch.convert import convert_checkpoint
+    from pytorch3dunet_tpu_torch.export import export_model, load_exported
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops import build, conv3d
+    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
+    from pytorch3dunet_tpu_torch.serve import ServingSession, make_server
+    from pytorch3dunet_tpu_torch.utils.weights import jax_checkpoint_bytes, load_jax_checkpoint
+
+    launches = {}
+    n_conv = 14
+    torch.manual_seed(SEED + 29)
+    model = get_model(dict(MODEL))
+    randomize_group_norms(model, torch.Generator().manual_seed(SEED + 29))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    model = model.to(device).eval()
+
+    # (a) the op: opcheck per variant and dtype, then one eager forward through it
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    for variant in conv3d.KERNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = conv_inputs(OPCHECK_SHAPE, OPCHECK_F, dtype, True, gen, device)
+            torch.library.opcheck(conv3d.conv3d_op, (x, w, b, variant))
+            # the same values in NCDHW storage: the op reads its contiguous copy
+            strided = x.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+            check(not strided.is_contiguous() and torch.equal(conv3d.conv3d_op(strided, w, b, variant),
+                                                              conv3d.conv3d_op(x, w, b, variant)),
+                  f"{variant} {dtype}: the op on a strided x differs from the op on its contiguous copy")
+    log(f"[29 op] torch.library.opcheck of {conv3d.OP_NAME} on CUDA passes for {sorted(conv3d.KERNELS)} x "
+        f"(f32, bf16) at x{OPCHECK_SHAPE} F={OPCHECK_F}; a strided x gives its contiguous copy's output bitwise")
+    mean, std = float(volume.mean()), float(volume.std())
+    rs = np.random.RandomState(SEED + 29)
+    raw = {n: torch.from_numpy((rs.randn(n, *EXPORT_PATCH, 1) * std + mean).astype(np.float32)).to(device)
+           for n in (1, 2)}
+
+    def eager(x, dtype=None):
+        model.compute_dtype = dtype
+        with torch.inference_mode():
+            return model(((x - mean) / max(std, 1e-10)).movedim(-1, 1))[0].movedim(1, -1)
+
+    probs = count_launches(launches, "export_eager", lambda: eager(raw[1]))
+    expect_launches(launches, "export_eager", k2=(n_conv, 0))
+    with plain_conv():
+        err = (probs - eager(raw[1])).abs().max().item()
+    log(f"[29 op] one eager UNet3D forward of x{tuple(raw[1].shape)} through the op: launches "
+        f"{launches['export_eager']}; probabilities against the plain conv max|d| = {err:.3e} (tol {FORWARD_TOL})")
+    check(err <= FORWARD_TOL, f"the forward through the op differs from the plain conv by {err}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch_ckpt = tmp / "weights.pytorch"
+        torch.save({"model_state_dict": weights}, torch_ckpt)
+
+        # (b) export: f32 and bf16, symbolic batch, called at batch 1 and 2
+        for dtype_name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            artifact = tmp / f"confocal_{dtype_name}.u3dx"
+            config = {"device": "cuda", "model": {**MODEL, **({"dtype": "bfloat16"} if dtype else {})}}
+            start = time.perf_counter()
+            meta = export_model(config, str(torch_ckpt), str(artifact), patch_shape=EXPORT_PATCH, batch="poly",
+                                normalize="standardize", stats={"mean": mean, "std": std})
+            export_s = time.perf_counter() - start
+            exported = load_exported(artifact)
+            check(meta["custom_ops"] == [conv3d.OP_NAME] and exported.meta["dtype"] == ("bfloat16" if dtype else
+                                                                                        "float32"),
+                  f"artifact meta {exported.meta}")
+            errs = {}
+            path = "export" if dtype is None else "export_bf16"
+            for n, x in raw.items():
+                with torch.no_grad():
+                    got = count_launches(launches, f"{path}_batch{n}", lambda: exported.module(x))
+                want = eager(x, dtype)
+                expect_launches(launches, f"{path}_batch{n}", k2=(0, n_conv) if dtype else (n_conv, 0))
+                check(got.shape == want.shape == (n, *EXPORT_PATCH, 1), f"artifact output {tuple(got.shape)}")
+                errs[n] = (got - want).abs().max().item()
+                check(errs[n] <= EXPORT_TOL, f"{dtype_name} artifact at batch {n} differs from the eager model by "
+                                             f"{errs[n]} (tol {EXPORT_TOL})")
+            launches[path] = launches.pop(f"{path}_batch1")
+            with torch.no_grad():
+                artifact_ms = timed_ms(lambda: exported.module(raw[1]))
+            eager_ms = timed_ms(lambda: eager(raw[1], dtype))
+            log(f"[29 export] {dtype_name} UNet3D, standardize inside, patch {EXPORT_PATCH}, symbolic batch: export "
+                f"{export_s:.2f} s, artifact {artifact.stat().st_size / 1e6:.1f} MB; {n_conv} K2 a forward inside it "
+                f"(batch 1 {launches[path]['conv3d_fwd']}, batch 2 {launches[path + '_batch2']['conv3d_fwd']}); "
+                f"against the eager model max|d| batch 1 {errs[1]:.3e}, batch 2 {errs[2]:.3e} (tol {EXPORT_TOL}); "
+                f"forward at batch 1 {artifact_ms:.2f} ms against eager {eager_ms:.2f} ms (median of {RUNS}) "
+                f"({smi})")
+            del exported
+        model.compute_dtype = None
+        del probs
+        torch.cuda.empty_cache()
+
+        # (c) convert: the npz writer, its reader, and convert both ways, bitwise
+        npz = tmp / "weights.npz"
+        npz.write_bytes(jax_checkpoint_bytes({"model_state_dict": weights, "num_epochs": 0, "num_iterations": 1,
+                                              "best_eval_score": None}))
+        read_back = get_model(dict(MODEL))
+        load_jax_checkpoint(read_back, npz)
+        start = time.perf_counter()
+        to_torch = convert_checkpoint({"model": dict(MODEL)}, npz, tmp / "converted.pytorch")
+        back = convert_checkpoint({"model": dict(MODEL)}, tmp / "converted.pytorch", tmp / "back.npz")
+        convert_s = time.perf_counter() - start
+        round_trip = get_model(dict(MODEL))
+        load_jax_checkpoint(round_trip, tmp / "back.npz")
+        converted = torch.load(tmp / "converted.pytorch", weights_only=True)["model_state_dict"]
+        for what, state in (("npz read back", read_back.state_dict()), ("--to torch", converted),
+                            ("torch -> npz", round_trip.state_dict())):
+            same = state.keys() == weights.keys() and all(torch.equal(state[k], v) for k, v in weights.items())
+            check(same, f"{what}: the weights are not bitwise the model's")
+        log(f"[29 convert] {len(weights)} tensors: npz {npz.stat().st_size / 1e6:.1f} MB read back bitwise; "
+            f"convert -> {to_torch} -> {back} bitwise in {convert_s:.2f} s ({smi})")
+
+        # (d) serve the confocal test config built from the npz
+        config = {"device": "cuda", "model_path": str(npz), "model": dict(MODEL),
+                  "predictor": {"name": "DeviceSlidingWindowPredictor"},
+                  "loaders": {"global_normalization": True, "test": {
+                      "slice_builder": {"name": "SliceBuilder", "patch_shape": list(PATCH),
+                                        "stride_shape": list(STRIDE), "halo_shape": list(HALO)},
+                      "transformer": copy.deepcopy(TRANSFORMER)}}}
+        session = ServingSession(config)
+        warmup_s = {}
+        default_build_dir = build.BUILD_DIR
+        try:
+            # a cold kernel build cache (nvcc), then a warm one (the libraries on disk)
+            build.BUILD_DIR = tmp / "torch_kernels"
+            for cache in ("cold", "warm"):
+                build._libs.clear()
+                start = time.perf_counter()
+                session.warmup()
+                torch.cuda.synchronize()
+                warmup_s[cache] = time.perf_counter() - start
+        finally:
+            build.BUILD_DIR = default_build_dir
+        check(session.normalize == "standardize", f"the confocal test config serves {session.normalize!r}")
+        server = make_server(session, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            served = count_launches(launches, "serve", lambda: post_npy(base, volume))
+            n_patches = math.prod(-(-v // s) for v, s in zip(VOLUME, STRIDE))
+            expect_launches(launches, "serve", k2=(n_conv * n_patches, 0))
+
+            def direct():
+                return session.predictor.predict_array(volume, PATCH, STRIDE, HALO, normalize=session.normalize,
+                                                       stats=session._resolve_stats(volume))
+
+            want = direct()
+            check(np.array_equal(served, want), f"served differs from predict_array by "
+                                                f"{np.abs(served - want).max()}")
+            segmentation = post_npy(base, volume, "?output=segmentation")
+            check(segmentation.dtype == np.uint16
+                  and np.array_equal(segmentation, session.predictor._to_segmentation(want)),
+                  "?output=segmentation differs from _to_segmentation of predict_array")
+            request_s, direct_s = [], []
+            for _ in range(SERVE_RUNS):
+                start = time.perf_counter()
+                post_npy(base, volume)
+                request_s.append(time.perf_counter() - start)
+                start = time.perf_counter()
+                direct()
+                direct_s.append(time.perf_counter() - start)
+            request_med, direct_med = statistics.median(request_s), statistics.median(direct_s)
+            start = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                answers = list(pool.map(lambda _: post_npy(base, volume), range(SERVE_CLIENTS)))
+            concurrent_s = time.perf_counter() - start
+            check(all(np.array_equal(a, want) for a in answers), "a concurrent client got another answer")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        log(f"[29 serve] POST /predict of {VOLUME} ({volume.nbytes / 1e6:.1f} MB .npy) on the confocal test "
+            f"config: launches {launches['serve']}; bitwise predict_array; ?output=segmentation equals its "
+            f"_to_segmentation; request {1e3 * request_med:.1f} ms against predict_array {1e3 * direct_med:.1f} ms "
+            f"(median of {SERVE_RUNS}): HTTP and .npy {100 * (request_med - direct_med) / request_med:.1f}%; "
+            f"{SERVE_CLIENTS} concurrent clients answered alike in {concurrent_s:.2f} s; warm-up with a cold "
+            f"kernel build cache {warmup_s['cold']:.2f} s, warm {warmup_s['warm']:.2f} s ({smi})")
+        del session, server
+
+    # (e) 2D micro-batching: the 2D confocal test config under --batch-planes 24
+    torch.manual_seed(SEED + 29)
+    config = {"device": "cuda", "model": dict(MODEL_2D), "predictor": {"name": "DeviceSlidingWindowPredictor"},
+              "loaders": {"global_normalization": True, "test": {
+                  "slice_builder": {"name": "SliceBuilder", "patch_shape": list(PATCH_2D_TEST),
+                                    "stride_shape": list(PATCH_2D_TEST), "halo_shape": list(HALO_2D)},
+                  "transformer": copy.deepcopy(TRANSFORMER)}}}
+    session = ServingSession(config, batch_planes=SERVE_BATCH_PLANES)
+    randomize_group_norms(session.model, torch.Generator().manual_seed(SEED + 29))
+    session.warmup()
+    rs = np.random.RandomState(SEED + 29)
+    # two mixes: requests of 4 planes of 1024x1024 (16 tiles each, one full
+    # forward of the 2D sweep's patch_batch), and requests of one plane of one
+    # tile, 512x512
+    mixes = {"4x1024^2": [(rs.rand(SERVE_2D_PLANES, *VOLUME_2D[1:]) * 2 + 1).astype(np.float32)
+                          for _ in range(SERVE_2D_CLIENTS)],
+             "1x512^2": [(rs.rand(1, *PATCH_2D_TEST[1:]) * 2 + 1).astype(np.float32)
+                         for _ in range(SERVE_1P_CLIENTS)]}
+    planes = mixes["4x1024^2"]
+    start = time.perf_counter()
+    expected = {name: [session._predict_direct(p, session._resolve_stats(p)) for p in vols]
+                for name, vols in mixes.items()}
+    sequential_s = time.perf_counter() - start
+    server = make_server(session, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    walls = {}
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        with ThreadPoolExecutor(max(SERVE_2D_CLIENTS, SERVE_1P_CLIENTS)) as pool:
+            batcher = session._batcher
+            submit = batcher.submit
+
+            def held(vols):
+                """The answers to `vols` sent at once with the device lock held
+                until every request has reached the micro-batcher, so that
+                they coalesce into at most two dispatches; and the batched
+                dispatches that took them."""
+                dispatches, arrived = batcher.batched_dispatches, []
+
+                def counted_submit(*args):
+                    arrived.append(None)
+                    return submit(*args)
+
+                batcher.submit = counted_submit
+                try:
+                    with session._lock:
+                        futures = [pool.submit(post_npy, base, p) for p in vols]
+                        deadline = time.perf_counter() + 60
+                        while len(arrived) < len(vols) and time.perf_counter() < deadline:
+                            time.sleep(0.01)
+                    return [f.result() for f in futures], batcher.batched_dispatches - dispatches
+                finally:
+                    batcher.submit = submit
+
+            reset_launches()
+            results, n_batched = held(planes)
+            torch.cuda.synchronize()
+            launches["serve_2d"] = launches_by_dtype()
+            batching = dict(session.info()["batching"])
+            single, single_batched = held(mixes["1x512^2"])
+            # wall times of each mix sent by all its clients at once, with the
+            # micro-batcher on and off (median of SERVE_RUNS, alternating)
+            for name, vols in mixes.items():
+                for on in (True, False):
+                    walls[name, on] = []
+                for _ in range(SERVE_RUNS):
+                    for on in (True, False):
+                        session._batcher = batcher if on else None
+                        start = time.perf_counter()
+                        list(pool.map(lambda p: post_npy(base, p), vols))
+                        walls[name, on].append(time.perf_counter() - start)
+            session._batcher = batcher
+            start = time.perf_counter()
+            for p in planes:
+                post_npy(base, p)
+            sequential_http_s = time.perf_counter() - start
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    expect_launches(launches, "serve_2d")
+    err = max(np.abs(got - want).max() for got, want in zip(results + single,
+                                                              expected["4x1024^2"] + expected["1x512^2"]))
+    wall = {key: statistics.median(times) for key, times in walls.items()}
+    log(f"[29 serve 2D] {SERVE_2D_CLIENTS} concurrent requests of {SERVE_2D_PLANES}x{VOLUME_2D[1]}x{VOLUME_2D[2]} "
+        f"under --batch-planes {SERVE_BATCH_PLANES}, held until all queued: {n_batched} batched dispatch(es) of "
+        f"{batching['batched_requests']} requests; {SERVE_1P_CLIENTS} of 1x{PATCH_2D_TEST[1]}x{PATCH_2D_TEST[2]} "
+        f"held alike: {single_batched} batched dispatch(es); each against its "
+        f"direct prediction max|d| = {err:.3e} (tol {SERVE_2D_TOL}); wall time of each mix from all its clients at "
+        f"once, micro-batcher on against off (median of {SERVE_RUNS}): "
+        + "; ".join(f"{name} {wall[name, True]:.3f} s against {wall[name, False]:.3f} s" for name in mixes)
+        + f"; the six 4x1024^2 requests one after another {sequential_http_s:.3f} s, their direct predictions "
+        f"{sequential_s:.3f} s with the single planes' ({smi})")
+    check(n_batched >= 1 and single_batched >= 1,
+          f"no batched dispatch: {batching}, single planes {single_batched}")
+    check(err <= SERVE_2D_TOL, f"micro-batched 2D results differ from direct by {err}")
+    del session, server
+    torch.cuda.empty_cache()
+    return launches
+
+
 def synthetic_batch(rs):
     """One (raw, target) batch of the confocal recipe's shape: an instance
     label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
@@ -2615,7 +2953,10 @@ def main():
     # 28. the trainer's breadth: remat, accumulation, EMA, resume, async checkpoints
     breadth = breadth_phase(device, (train_batch, val_batch), smi)
 
-    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth}
+    # 29. checkpoint conversion, the exported forward and the HTTP server
+    serving = serving_phase(device, volume, smi)
+
+    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth, **serving}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}

@@ -55,14 +55,45 @@ def _gaussian_window(shape, sigma_scale=0.125):
 
 def _percentile(flat_sorted: torch.Tensor, q) -> torch.Tensor:
     """`jnp.percentile(x, q)` (q in percent, linear interpolation) of the
-    values `flat_sorted` (1-D, ascending). The two ranks and their weights
-    are computed on the host from the static length, so nothing syncs;
-    `torch.quantile` would refuse a slab-sized patch."""
-    position = float(q) / 100.0 * (flat_sorted.numel() - 1)
+    values `flat_sorted` (ascending along the last axis; one percentile per
+    row of a 2-D tensor). The two ranks and their weights are computed on the
+    host from the static length, so nothing syncs; `torch.quantile` would
+    refuse a slab-sized patch."""
+    n = flat_sorted.shape[-1]
+    position = float(q) / 100.0 * (n - 1)
     low = int(np.floor(position))
-    high = min(low + 1, flat_sorted.numel() - 1)
+    high = min(low + 1, n - 1)
     weight = position - low
-    return flat_sorted[low] * (1.0 - weight) + flat_sorted[high] * weight
+    return flat_sorted[..., low] * (1.0 - weight) + flat_sorted[..., high] * weight
+
+
+def normalize(x: torch.Tensor, mode, stats, per_sample: bool = False) -> torch.Tensor:
+    """The device normalizations of the sweep's patches and of the exported
+    forward (JAX inference_device.py and export.py `_normalize_fn`), over the
+    whole of `x` or, with `per_sample`, over each x[i]. `mode`:
+    'standardize' by `stats` mean and std (floats or scalar tensors),
+    'standardize_patch' by the mean and population std (as jnp.std),
+    'normalize' to [-1, 1] by the min and max, 'percentile' by the `stats`
+    pmin and pmax percentiles (a sort and static ranks, `_percentile`); any
+    other mode ('none', None) returns x."""
+    dims = tuple(range(1 if per_sample else 0, x.ndim))
+    if mode == "standardize":
+        std = stats["std"]
+        std = torch.clamp(std, min=1e-10) if torch.is_tensor(std) else max(std, 1e-10)
+        return (x - stats["mean"]) / std
+    if mode == "standardize_patch":
+        std, mean = torch.std_mean(x, dim=dims, correction=0, keepdim=True)
+        return (x - mean) / torch.clamp(std, min=1e-10)
+    if mode == "normalize":
+        lo, hi = torch.amin(x, dim=dims, keepdim=True), torch.amax(x, dim=dims, keepdim=True)
+        return torch.clamp(2 * (x - lo) / (hi - lo + 1e-10) - 1, -1, 1)
+    if mode == "percentile":
+        rows = torch.sort(x.reshape(x.shape[0] if per_sample else 1, -1), dim=1).values
+        shape = (-1,) + (1,) * (x.ndim - 1) if per_sample else (1,) * x.ndim
+        lo = _percentile(rows, stats["pmin"]).reshape(shape)
+        hi = _percentile(rows, stats["pmax"]).reshape(shape)
+        return (x - lo) / (hi - lo + 1e-10)
+    return x
 
 
 class DeviceSlidingWindow:
@@ -123,23 +154,6 @@ class DeviceSlidingWindow:
             return {}
         return {k: torch.tensor(np.float32(v), device=self.device) for k, v in keys.items()}
 
-    def _normalize_patch(self, patch, stats):
-        if self.normalize == "standardize":
-            return (patch - stats["mean"]) / torch.clamp(stats["std"], min=1e-10)
-        if self.normalize == "standardize_patch":
-            # the population std, as jnp.std
-            std, mean = torch.std_mean(patch, correction=0)
-            return (patch - mean) / torch.clamp(std, min=1e-10)
-        if self.normalize == "normalize":
-            lo, hi = torch.aminmax(patch)
-            return torch.clamp(2 * (patch - lo) / (hi - lo + 1e-10) - 1, -1, 1)
-        if self.normalize == "percentile":
-            flat = torch.sort(patch.reshape(-1)).values
-            lo = _percentile(flat, stats["pmin"])
-            hi = _percentile(flat, stats["pmax"])
-            return (patch - lo) / (hi - lo + 1e-10)
-        return patch
-
     def _apply_model(self, x):
         """Model-ready (N, C, D, H, W) batch, or (N, C, H, W) for a 2D model,
         -> float32 probabilities; mirror-TTA-averaged when on."""
@@ -157,7 +171,7 @@ class DeviceSlidingWindow:
         hz, hy, hx = self.halo_shape
         cz, cy, cx = self.patch_shape
         pz, py, px = cz + 2 * hz, cy + 2 * hy, cx + 2 * hx
-        patches = [self._normalize_patch(padded_volume[:, z : z + pz, y : y + py, x : x + px], stats)
+        patches = [normalize(padded_volume[:, z : z + pz, y : y + py, x : x + px], self.normalize, stats)
                    for z, y, x in starts_b]
         batch = torch.stack(patches)
         if self.is_2d:

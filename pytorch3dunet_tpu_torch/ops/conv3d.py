@@ -12,7 +12,11 @@ CUDA each tiling is its own kernel:
   with F >= 64 when P3DUNET_TAPFOLD=1 (`forward_variant`);
 - "packw" (K3) -> `csrc/conv3d_packw.cu`, the conv's input gradient.
 A CUDA tensor goes to the kernel or raises; a CPU tensor goes to the plain
-version, `conv3d_fwd_reference`, whatever the variant.
+version, `conv3d_fwd_reference`, whatever the variant. Both are the
+implementations of one `torch.library` custom op,
+`pytorch3dunet_tpu_torch::conv3d_fwd` (`conv3d_op`), whose fake implementation
+lets `torch.export` trace a model through the kernels (export.py): the
+exported graph calls the op, and the op launches the kernel at run time.
 
 `forward_variant` is the JAX package's switch (pytorch3dunet_tpu/ops/conv.py
 `_use_tapfold`), read at call time as there: the JAX forward is then the
@@ -51,7 +55,8 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 KERNELS = {"roll": "conv3d_fwd", "packw": "conv3d_packw", "im2col": "conv3d_im2col"}
 
 # launches of each CUDA kernel (by source name) since the last reset, and the
-# same split by dtype ("f32", "bf16"); callers set them to 0 (`reset_launches`)
+# same split by dtype ("f32", "bf16"), counted by the op's CUDA implementation
+# where it launches (so a trace counts none); callers set them to 0 (`reset_launches`)
 launches = dict.fromkeys(KERNELS.values(), 0)
 launches_by_dtype = {name: dict.fromkeys(_SUFFIX.values(), 0) for name in KERNELS.values()}
 
@@ -131,25 +136,52 @@ def conv3d_fwd(x, w, b=None, variant: str | None = None):
 
     `b=None` means no bias; `w` and `b` are cast to x's dtype. On CUDA the
     kernel of `variant` runs, on the current stream; on the CPU the plain
-    version does. `variant=None` is the conv forward's own choice,
-    `forward_variant(F)`. No autograd: training goes through `Conv3dFunction`."""
+    version does. Both go through the custom op `conv3d_op`, so that
+    `torch.export` records the op, not the ctypes call. `variant=None` is the
+    conv forward's own choice, `forward_variant(F)`. No autograd: training
+    goes through `Conv3dFunction`."""
     if variant is None:
         variant = forward_variant(w.shape[-1])
     if variant not in KERNELS:
         raise ValueError(f"conv3d_fwd: unknown variant {variant!r}; expected one of {sorted(KERNELS)}")
     _check(x, w, b)
-    if x.device.type == "cpu":
-        return conv3d_fwd_reference(x, w, b)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3d_fwd: unsupported device {x.device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
         raise NotImplementedError("conv3d_fwd has no autograd: call Conv3dFunction.apply, or run it under "
                                   "torch.no_grad() or torch.inference_mode()")
-    if not x.is_contiguous():
-        raise ValueError("conv3d_fwd: x must be contiguous (N, D, H, W, C)")
+    return conv3d_op(x, w, b, variant)
+
+
+# The conv forward as a custom op, `pytorch3dunet_tpu_torch::conv3d_fwd`:
+# `conv3d_fwd`'s contract, with the checks left to it. Its CUDA implementation
+# launches the hand kernel of `variant`, its CPU implementation is the plain
+# version, and its fake implementation gives `torch.export` the output's shape,
+# so an exported forward keeps the op (and at run time the kernel) in its graph.
+OP_NAME = "pytorch3dunet_tpu_torch::conv3d_fwd"
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cpu")
+def conv3d_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, variant: str) -> torch.Tensor:
+    return conv3d_fwd_reference(x, w, b)
+
+
+@conv3d_op.register_fake
+def _conv3d_op_fake(x, w, b, variant):
+    return x.new_empty((*x.shape[:4], w.shape[-1]))
+
+
+@conv3d_op.register_kernel("cuda")
+def _conv3d_op_cuda(x, w, b, variant):
+    """The launch of the hand kernel of `variant`; counts it in `launches`
+    and `launches_by_dtype`. The kernel reads x as dense NDHWC: a strided x
+    is copied first. The eager callers hand it contiguous already, but an
+    exported program keeps no trace-time `.contiguous()` for inputs whose
+    strides differ at run time."""
     N, D, H, W, C = x.shape
     Fo = w.shape[-1]
     name = KERNELS[variant]
+    x = x.contiguous()
     w = w.to(x.dtype)
     w = kmajor_weight(w) if variant == "roll" else w.contiguous()
     if b is not None:

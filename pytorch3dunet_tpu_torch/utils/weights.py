@@ -9,7 +9,8 @@ deconv's tap flip, and the SE layers' keys.
 
 A JAX npz checkpoint (pytorch3dunet_tpu/utils/checkpoint.py `state_to_bytes`)
 holds each pytree as its leaves in `jax.tree_util` order, under
-`__tree__/<key>/<index>`. `load_jax_checkpoint` reads it with numpy alone: the
+`__tree__/<key>/<index>`. `jax_checkpoint_bytes` writes one and
+`load_jax_checkpoint` reads it, both with numpy alone: the
 flax tree of the port model's own state dict (`utils/interop.py`) names and
 orders the leaves, and the EMA weights (`ema_state_dict`, the params leaves of
 a run with `trainer.ema_decay`) replace the params when present, as
@@ -66,6 +67,8 @@ def read_jax_checkpoint(path) -> dict:
                 _, key, index = name.split("/")
                 trees.setdefault(key, {})[int(index)] = data[name]
     state = {k: v for k, v in meta.items() if not k.startswith("__tree_len__/")}
+    # a pytree of no leaves stores no arrays: its key comes back as []
+    state.update({k.split("/", 1)[1]: [] for k, v in meta.items() if k.startswith("__tree_len__/") and v == 0})
     for key, leaves in trees.items():
         state[key] = [leaves[i] for i in sorted(leaves)]
     return state
@@ -86,16 +89,23 @@ def _restore(template: list[tuple[str, np.ndarray]], leaves: list[np.ndarray], w
     return restored
 
 
+def _jax_leaves_with_paths(state_dict: dict) -> tuple[list, list]:
+    """The ('batch_stats/...' and 'params/...' path, leaf) pairs of the JAX
+    variables of a port state dict, in `jax.tree_util` order, and the params
+    pairs alone (paths without the collection)."""
+    own = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    params = tree_leaves_with_paths(torch_state_dict_to_params(own))
+    batch_stats = tree_leaves_with_paths(torch_state_dict_to_batch_stats(own))
+    # jax.tree_util orders the collections of {'batch_stats', 'params'} by key too
+    return [(f"batch_stats/{p}", v) for p, v in batch_stats] + [(f"params/{p}", v) for p, v in params], params
+
+
 def load_jax_checkpoint(model: torch.nn.Module, path, ema: bool = True) -> bool:
     """Loads a JAX npz checkpoint into `model`: its EMA weights when it
     carries them and `ema`, else `model_state_dict`. Returns whether the EMA
     weights were used."""
     state = read_jax_checkpoint(path)
-    own = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
-    params = tree_leaves_with_paths(torch_state_dict_to_params(own))
-    batch_stats = tree_leaves_with_paths(torch_state_dict_to_batch_stats(own))
-    # jax.tree_util orders the collections of {'batch_stats', 'params'} by key too
-    template = [(f"batch_stats/{p}", v) for p, v in batch_stats] + [(f"params/{p}", v) for p, v in params]
+    template, params = _jax_leaves_with_paths(model.state_dict())
     variables = tree_from_paths(_restore(template, state["model_state_dict"], f"{path}: model_state_dict"))
     used_ema = ema and bool(state.get("ema_state_dict"))
     if used_ema:
@@ -103,6 +113,29 @@ def load_jax_checkpoint(model: torch.nn.Module, path, ema: bool = True) -> bool:
         logger.info("Checkpoint carries EMA weights (trainer.ema_decay): predicting with them")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     return used_ema
+
+
+def jax_checkpoint_bytes(state: dict) -> bytes:
+    """A JAX npz checkpoint of `state`, in the layout of the JAX package's
+    `state_to_bytes` (pytorch3dunet_tpu/utils/checkpoint.py): JSON scalars and
+    None go to `__meta__`; `model_state_dict`, a port state dict, goes as the
+    leaves of its JAX variables in `jax.tree_util` order (the inverse of
+    `load_jax_checkpoint`); any other value is a list of leaves, written as
+    it is (what `read_jax_checkpoint` returns for a pytree)."""
+    arrays, meta = {}, {}
+    for key, value in state.items():
+        if isinstance(value, (int, float, str, bool)) or value is None:
+            meta[key] = value
+            continue
+        if key == "model_state_dict":
+            value = [leaf for _, leaf in _jax_leaves_with_paths(value)[0]]
+        for i, leaf in enumerate(value):
+            arrays[f"__tree__/{key}/{i:05d}"] = np.asarray(leaf)
+        meta[f"__tree_len__/{key}"] = len(value)
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
 
 
 def load_weights(model: torch.nn.Module, path, ema: bool = True) -> bool:
