@@ -193,6 +193,27 @@ phases 24-26 assert 0 launches of K1, K2 and K3:
      of 1024x1024 and 16 of one 512x512 plane, at least one batched dispatch
      in each, each within 3e-5 of its direct prediction; each mix's wall time
      with the micro-batcher on and off.
+Phase 30 drives the port's parallelism (parallel/, the trainer's and the
+sweeps' sharded paths) on the one card:
+ 30. Every step is an update of `create_trainer`'s trainer on in-memory
+     batches (its batch preparation, mesh choice and step builders). (a) world
+     size 1 over NCCL through `initialize_from_env` and a local coordinator:
+     the D-sharded confocal step (`trainer.spatial_sharding`; every 3x3x3 conv
+     on a halo'd slab of D + 2 planes, zero halos), f32 and bf16, 14 K2 + 14 K3
+     a step, against a float64 plain step (phase 13's gate) and the bf16
+     plain-conv step (phase 19's); (b) two ranks as two processes sharing the
+     card over gloo, which takes CUDA tensors for all_reduce and broadcast
+     (NCCL refuses two ranks on one device): the D-sharded f32 step at local
+     D 40 and one data-parallel step of 2 x 1 patches against the batch-2 step,
+     14 K2 + 14 K3 a rank, each held by (a)'s gate, the ranks' updated
+     parameters identical; (c) phase 4's grid sweep split over the 2 ranks
+     (2 patches, 28 K2 a rank) against one rank's, within 1e-5, and two slabs
+     of 80 planes z-sharded over them against one rank's slab, within 1e-4 and
+     either within 2e-5 or no further from a float64 forward than twice one
+     rank's distance plus 2e-5; (d) the sharded step's time at world size 1
+     against the unsharded one (the halo path and its 2 extra planes), each
+     rank's step, its all-reduces, the sweeps. Two ranks sharing one card say
+     nothing of scaling.
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -211,6 +232,7 @@ import copy
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -2557,6 +2579,382 @@ def serving_phase(device, volume, smi):
     return launches
 
 
+# phase 30: the port's parallelism on one card. World size 1 over NCCL (the
+# exchanged halos are zeros), then two ranks as two processes sharing the card
+# over gloo, which takes CUDA tensors for all_reduce and broadcast (NCCL refuses
+# two ranks on one device). The f32 steps take phase 13's gate against a
+# float64 plain step on the same batch and weights; the bf16 step phase 19's
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 600
+# the cooperative slab: the first 80 planes of phase 4's volume as one slab,
+# padded depth 112 shards 2 ways through the 4 levels; then, as a second
+# input, its last 80 planes reversed with noise of another seed added
+COOP_DEPTH = 80
+COOP_MAX_PATCH_VOXELS = (COOP_DEPTH + 2 * HALO[0]) * (VOLUME[1] + 2 * HALO[1]) * (VOLUME[2] + 2 * HALO[2])
+# the grid sweep against one rank's: the same cores, summed by one all-reduce.
+# The cooperative slab against one rank's slab within COOP_TOL, or no further
+# from a float64 forward of the slab than twice one rank's own distance plus
+# COOP_TOL (phase 13's form): its GroupNorm sums its moments in another order,
+# which moved the probabilities by 3.3e-5 on an H100 while one rank's slab sat
+# 3.4e-5 from float64 and the z-sharded one 2.4e-6. Either way within COOP_CAP
+# of one rank's slab, so that a drift between the two paths cannot hide behind
+# a noisy reference
+SWEEP_TOL, COOP_TOL, COOP_CAP = 1e-5, 2e-5, 1e-4
+
+
+def coop_inputs(volume):
+    """The cooperative slab's two inputs, each with its (normalize, stats):
+    phase 4's first COOP_DEPTH planes under the volume's statistics, then its
+    last COOP_DEPTH planes reversed plus noise of another seed, under its own."""
+    from pytorch3dunet_tpu_torch.datasets.utils import calculate_stats
+    from pytorch3dunet_tpu_torch.inference_device import detect_device_path
+
+    noise = 0.5 * np.random.RandomState(SEED + 30).rand(COOP_DEPTH, *VOLUME[1:]).astype(np.float32)
+    second = np.ascontiguousarray(volume[-COOP_DEPTH:][::-1] + noise)
+    first = np.ascontiguousarray(volume[:COOP_DEPTH])
+    return [(first, *detect_device_path(TRANSFORMER["raw"], calculate_stats(volume))),
+            (second, *detect_device_path(TRANSFORMER["raw"], calculate_stats(second)))]
+
+
+def phase30_trainer(checkpoint_dir, batch, spatial, dtype=None):
+    """`create_trainer` on one in-memory batch: the confocal model and recipe,
+    `trainer.spatial_sharding` on, or off (data parallel over 2 ranks)."""
+    from pytorch3dunet_tpu_torch.trainer import create_trainer
+
+    model = dict(MODEL) if dtype is None else {**MODEL, "dtype": dtype}
+    config = {"manual_seed": SEED, "device": "cuda", "model": model, **TRAIN_SECTIONS,
+              "trainer": {"checkpoint_dir": checkpoint_dir, "spatial_sharding": spatial,
+                          "eval_score_higher_is_better": False, "validate_after_iters": 10**9,
+                          "log_after_iters": 10**9, "max_num_epochs": 1, "max_num_iterations": 10}}
+    return create_trainer(config, loaders={"train": [batch], "val": []})
+
+
+def trainer_update(trainer, state, batch):
+    """`state` into the trainer's model, then one `_update` on `batch` (the
+    trainer's batch preparation, mesh and step); its gradients, float64 on
+    the host."""
+    from pytorch3dunet_tpu_torch.utils.misc import RunningAverage
+
+    trainer.model.load_state_dict(state)
+    trainer._update((batch,), RunningAverage())
+    return {name: p.grad.detach().double().cpu() for name, p in trainer.model.named_parameters()}
+
+
+def _parallel_rank(rank, port, tmpdir):
+    """One of the two ranks of phase 30(b)-(c): gloo on CUDA tensors, on the card
+    both share. Saves its grads, launches, outputs and times to tmpdir."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.distributed as dist
+
+    from pytorch3dunet_tpu_torch.config import use_float32_math
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.parallel import distributed
+    from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor
+
+    use_float32_math()
+    # the library takes NCCL for CUDA; NCCL refuses two ranks on one device,
+    # so this drill makes the gloo group itself
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=PARALLEL_RANKS, rank=rank)
+    distributed.build_host_groups()
+    device = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(tmpdir, "inputs.pt"), weights_only=False)
+    state, batches = inputs["state"], inputs["batches"]
+    checkpoint_dir = os.path.join(tmpdir, "checkpoints")
+    out = {}
+
+    # (b) the D-sharded f32 step through the trainer: local D 40
+    trainer = phase30_trainer(checkpoint_dir, batches[0], spatial=True)
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    out["sharded_grads"] = trainer_update(trainer, state, batches[0])
+    torch.cuda.synchronize()
+    out["sharded_launches"] = launches_by_dtype()
+    torch.backends.cudnn.deterministic = False
+    out["sharded_params"] = {name: p.detach().cpu() for name, p in trainer.model.named_parameters()}
+    slabs = trainer._prepare_batch(*batches[0])
+    out["space_ranks"], out["local_d"] = trainer.mesh.size, slabs[0].shape[2]
+    out["sharded_step_ms"] = timed_ms(lambda: trainer._train_fns(*slabs), runs=3)
+
+    # the collectives' share of one step: every all_reduce timed, the card synchronized around each
+    collective = {"ms": 0.0, "calls": 0, "bytes": 0}
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = all_reduce(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        collective["ms"] += (time.perf_counter() - start) * 1e3
+        collective["calls"] += 1
+        collective["bytes"] += tensor.numel() * tensor.element_size()
+        return result
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        trainer._train_fns(*slabs)
+        torch.cuda.synchronize()
+        out["sharded_step_synced_ms"] = (time.perf_counter() - start) * 1e3
+    finally:
+        dist.all_reduce = all_reduce
+    out["collectives"] = collective
+    del trainer, slabs
+
+    # (b) one data-parallel step of 2 x 1 patches through the trainer: each rank its own patch
+    trainer = phase30_trainer(checkpoint_dir, batches[rank], spatial=False)
+    torch.backends.cudnn.deterministic = True
+    reset_launches()
+    out["dp_grads"] = trainer_update(trainer, state, batches[rank])
+    torch.cuda.synchronize()
+    out["dp_launches"] = launches_by_dtype()
+    torch.backends.cudnn.deterministic = False
+    out["dp_ranks"] = trainer.mesh.size
+    mine = trainer._prepare_batch(*batches[rank])
+    out["dp_step_ms"] = timed_ms(lambda: trainer._train_fns(*mine), runs=3)
+    del trainer, mine
+
+    # (c) the grid sweep split over the host's 2 ranks, then the cooperative slabs
+    model = get_model(MODEL)
+    model.load_state_dict(state)
+    model = model.to(device).eval()
+    volume, normalize, stats = inputs["volume"], inputs["normalize"], inputs["stats"]
+    grid = DeviceSlidingWindowPredictor(model, None, model.out_channels, device, blend="assign")
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out["sweep"] = grid.predict_array(volume, PATCH, STRIDE, HALO, normalize=normalize, stats=stats)
+    torch.cuda.synchronize()
+    out["sweep_ms"] = (time.perf_counter() - start) * 1e3
+    out["sweep_launches"] = launches_by_dtype()
+    out["sweep_sharded"] = [key[-2] for key in grid._sweeps]
+    coop = DeviceSlidingWindowPredictor(model, None, model.out_channels, device, blend="gaussian", patch_mode="slab",
+                                        max_patch_voxels=COOP_MAX_PATCH_VOXELS)
+    slabs = coop_inputs(volume)
+    slab, normalize, stats = slabs[0]
+    coop.predict_array(slab, PATCH, STRIDE, HALO, normalize=normalize, stats=stats)  # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out["coop"] = [coop.predict_array(slab, PATCH, STRIDE, HALO, normalize=normalize, stats=stats)]
+    torch.cuda.synchronize()
+    out["coop_ms"] = (time.perf_counter() - start) * 1e3
+    out["coop_launches"] = launches_by_dtype()
+    out["coop"] += [coop.predict_array(s, PATCH, STRIDE, HALO, normalize=n, stats=st) for s, n, st in slabs[1:]]
+    out["coop_spatial_n"] = [key[-1] for key in coop._sweeps]
+    if rank != 0:
+        del out["sweep"], out["coop"]
+    torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
+    distributed.shutdown()
+
+
+def parallel_phase(device, batches, volume, step_ms, smi):
+    """Phase 30, every step through `create_trainer`'s trainer: (a) the
+    D-sharded confocal step at world size 1 over NCCL, f32 and bf16, against
+    phase 7's unsharded step; (b) two ranks sharing the card over gloo: the
+    D-sharded step (local D 40) and one data-parallel step of 2 x 1 patches;
+    (c) the grid sweep split over the 2 ranks and the cooperative slab at two
+    inputs; (d) times. Returns the launches of its paths by kernel and dtype."""
+    import torch.multiprocessing as mp
+
+    from pytorch3dunet_tpu_torch.datasets.utils import mirror_pad
+    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
+    from pytorch3dunet_tpu_torch.parallel import distributed
+    from pytorch3dunet_tpu_torch.predictor import DeviceSlidingWindowPredictor
+
+    phase_start = time.perf_counter()
+    launches = {}
+    torch.manual_seed(SEED)
+    model = get_model(MODEL)
+    randomize_group_norms(model, torch.Generator().manual_seed(SEED + 1))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model = model.to(device).train()
+    criterion = get_loss_criterion({"loss": dict(TRAIN_SECTIONS["loss"])})
+    inp, target = (torch.from_numpy(a).to(device) for a in batches[0])
+
+    def gate(grads, grads_plain, grads64, tag):
+        """Phase 13's gate: each tensor's error from float64 within twice the
+        plain f32 step's own plus RES_GRAD_TOL."""
+        err_k, err_p = ({k: worst_rel({k: g[k]}, grads64)[0] for k in g} for g in (grads, grads_plain))
+        margin = min((2 * err_p[k] + RES_GRAD_TOL - err_k[k], k) for k in grads)
+        log(f"[30 parallel] {tag}: grads against a float64 plain step, worst over {len(grads)} tensors: sharded "
+            f"{max(err_k.values()):.3e} ({max(err_k, key=err_k.get)}), plain f32 {max(err_p.values()):.3e}; least "
+            f"margin to 2 x plain + {RES_GRAD_TOL}: {margin[0]:.3e} ({margin[1]})")
+        check(all(math.isfinite(v) for v in err_k.values()), f"{tag}: grads not finite")
+        check(margin[0] >= 0, f"{tag}: sharded {err_k[margin[1]]} vs plain f32 {err_p[margin[1]]} from float64 at "
+                              f"{margin[1]}")
+
+    # (a) world size 1 over NCCL, through initialize_from_env and a local coordinator
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(P3DUNET_COORDINATOR=f"127.0.0.1:{port}", P3DUNET_NUM_PROCESSES="1", P3DUNET_PROCESS_ID="0")
+    try:
+        check(distributed.initialize_from_env(device), "initialize_from_env did not set up a process group")
+        import torch.distributed as dist
+
+        check(dist.get_backend() == "nccl" and distributed.world_size() == 1, f"backend {dist.get_backend()}")
+        with tempfile.TemporaryDirectory() as checkpoint_dir:
+            sharded = phase30_trainer(checkpoint_dir, batches[0], spatial=True)
+            torch.backends.cudnn.deterministic = True
+            try:
+                grads = count_launches(launches, "sharded_train_ws1",
+                                       lambda: trainer_update(sharded, state, batches[0]))
+                with plain_conv():
+                    grads_plain = grads_of_step(model, criterion, inp, target)
+                    grads64 = grads_of_step(copy.deepcopy(model).double(), criterion, inp, target, torch.float64)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            check(sharded.mesh is not None and sharded.mesh.size == 1, f"the trainer's space mesh {sharded.mesh}")
+            expect_launches(launches, "sharded_train_ws1", k2=(14, 0), k3=(14, 0))
+            grads_plain, grads64 = ({k: g.cpu() for k, g in d.items()} for d in (grads_plain, grads64))
+            gate(grads, grads_plain, grads64, "(a) the trainer's D-sharded step at world size 1, NCCL")
+
+            # bf16: phase 19's gate against the unsharded bf16 step with the plain conv
+            sharded16 = phase30_trainer(checkpoint_dir, batches[0], spatial=True, dtype="bfloat16")
+            grads16 = count_launches(launches, "sharded_train_bf16_ws1",
+                                     lambda: trainer_update(sharded16, state, batches[0]))
+            expect_launches(launches, "sharded_train_bf16_ws1", k2=(0, 14), k3=(0, 14))
+            sharded16.model.load_state_dict(state)
+            with plain_conv():
+                grads16_plain = {k: g.cpu() for k, g in grads_of_step(sharded16.model, criterion, inp, target).items()}
+            g_max = max(g.abs().max().item() for g in grads16_plain.values())
+            vs_plain = max(((g - grads16_plain[k]).abs().max().item() / g_max, k) for k, g in grads16.items())
+            log(f"[30 parallel] (a) the trainer's bf16 D-sharded step at world size 1: vs the unsharded bf16 step "
+                f"with the plain conv worst max|d| / max|g| {vs_plain[0]:.3e} ({vs_plain[1]}, ceiling "
+                f"{BF16_STEP_VS_PLAIN_TOL})")
+            check(vs_plain[0] <= BF16_STEP_VS_PLAIN_TOL,
+                  f"bf16 D-sharded step differs from the plain conv's: {vs_plain}")
+            del sharded16, grads16, grads16_plain
+
+            # (d) the halo path's cost: the trainer's sharded step against its unsharded one, in turns
+            unsharded = phase30_trainer(checkpoint_dir, batches[0], spatial=False)
+            trainer_update(unsharded, state, batches[0])
+            check(unsharded.mesh is None, f"one rank without spatial_sharding took the mesh {unsharded.mesh}")
+            whole, slabs = unsharded._prepare_batch(*batches[0]), sharded._prepare_batch(*batches[0])
+            plain_ms = [timed_ms(lambda: unsharded._train_fns(*whole), runs=3)]
+            sharded_ms = timed_ms(lambda: sharded._train_fns(*slabs), runs=3)
+            plain_ms.append(timed_ms(lambda: unsharded._train_fns(*whole), runs=3))
+            profile_step(lambda: sharded._train_fns(*slabs), sharded_ms, tag="30 profile",
+                         what="one D-sharded f32 step at world size 1")
+            log(f"[30 parallel] (d) {smi}: one f32 train step (Adam) of {TRAIN_PATCH}, the trainer's: D-sharded at "
+                f"world size 1 (NCCL, zero halos, every conv on D + 2 planes) {sharded_ms:.2f} ms | unsharded "
+                f"{plain_ms[0]:.2f}, {plain_ms[1]:.2f} ms (phase 8: {step_ms:.2f} ms) | halo path cost "
+                f"{sharded_ms / statistics.mean(plain_ms) - 1:+.1%}")
+            del sharded, unsharded, whole, slabs
+    finally:
+        distributed.shutdown()
+        for key in ("P3DUNET_COORDINATOR", "P3DUNET_NUM_PROCESSES", "P3DUNET_PROCESS_ID"):
+            os.environ.pop(key, None)
+
+    # the references of (b) and (c), before the ranks take the card
+    stacked = [torch.from_numpy(np.concatenate([b[i] for b in batches])).to(device) for i in range(2)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        with plain_conv():
+            dp_plain = {k: g.cpu() for k, g in grads_of_step(model, criterion, *stacked).items()}
+            dp64 = {k: g.cpu() for k, g in grads_of_step(copy.deepcopy(model).double(), criterion, *stacked,
+                                                          torch.float64).items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del stacked, inp, target
+    model.eval()
+    coop_slabs = coop_inputs(volume)
+    _, normalize, stats = coop_slabs[0]
+    one = DeviceSlidingWindowPredictor(model, None, model.out_channels, device, blend="assign")
+    one.predict_array(volume, PATCH, STRIDE, HALO, normalize=normalize, stats=stats)
+    start = time.perf_counter()
+    sweep_ref = one.predict_array(volume, PATCH, STRIDE, HALO, normalize=normalize, stats=stats)
+    sweep_ref_ms = (time.perf_counter() - start) * 1e3
+    slab = DeviceSlidingWindowPredictor(model, None, model.out_channels, device, blend="gaussian", patch_mode="slab",
+                                        max_patch_voxels=COOP_MAX_PATCH_VOXELS)
+    slab_refs, slab64s = [], []
+    for i, (slab_volume, slab_normalize, slab_stats) in enumerate(coop_slabs):
+        if i == 0:
+            slab.predict_array(slab_volume, PATCH, STRIDE, HALO, normalize=slab_normalize, stats=slab_stats)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        slab_refs.append(slab.predict_array(slab_volume, PATCH, STRIDE, HALO, normalize=slab_normalize,
+                                            stats=slab_stats))
+        torch.cuda.synchronize()
+        if i == 0:
+            slab_ref_ms = (time.perf_counter() - start) * 1e3
+        # the slab plan is one patch: its float64 forward with the plain conv
+        padded = (mirror_pad(slab_volume, HALO) - slab_stats["mean"]) / slab_stats["std"]
+        with torch.inference_mode(), plain_conv():
+            probs64 = copy.deepcopy(model).double()(torch.from_numpy(padded).to(device).double()[None, None])[0]
+        slab64s.append(probs64[0, :, HALO[0]:-HALO[0], HALO[1]:-HALO[1], HALO[2]:-HALO[2]].cpu().numpy())
+        del probs64
+    del model, one, slab
+    torch.cuda.empty_cache()
+
+    # (b)-(c) two ranks on the one card
+    with tempfile.TemporaryDirectory() as tmpdir:
+        torch.save({"state": state, "batches": batches, "volume": volume, "normalize": normalize, "stats": stats},
+                   os.path.join(tmpdir, "inputs.pt"))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_parallel_rank, args=(rank, port, tmpdir)) for rank in range(PARALLEL_RANKS)]
+        start = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(max(PARALLEL_TIMEOUT_S - (time.perf_counter() - start), 1))
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        check(all(proc.exitcode == 0 for proc in procs), f"phase 30 ranks exited {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmpdir, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_RANKS)]
+        ranks_s = time.perf_counter() - start
+
+    for rank, res in enumerate(ranks):
+        check(res["space_ranks"] == PARALLEL_RANKS and res["local_d"] == TRAIN_PATCH[0] // PARALLEL_RANKS,
+              f"rank {rank}: space mesh {res['space_ranks']}, local D {res['local_d']}")
+        check(res["dp_ranks"] == PARALLEL_RANKS, f"rank {rank}: data mesh of {res['dp_ranks']} ranks")
+        for path, k2, k3 in (("sharded", 14, 14), ("dp", 14, 14), ("sweep", 28, 0), ("coop", 14, 0)):
+            launches[f"{path}_rank{rank}"] = res[f"{path}_launches"]
+            expect_launches(launches, f"{path}_rank{rank}", k2=(k2, 0), k3=(k3, 0))
+        gate(res["sharded_grads"], grads_plain, grads64,
+             f"(b) rank {rank} of the trainer's D-sharded step over gloo, local D 40")
+        gate(res["dp_grads"], dp_plain, dp64, f"(b) rank {rank} of the trainer's data-parallel step of 2 x 1 patches")
+    for name, value in ranks[0]["sharded_params"].items():
+        check(torch.equal(value, ranks[1]["sharded_params"][name]), f"the ranks' updated {name} differ")
+    check(ranks[0]["sweep_sharded"] == [True], f"the grid sweep did not shard: {ranks[0]['sweep_sharded']}")
+    check(ranks[0]["coop_spatial_n"] == [PARALLEL_RANKS], f"the slab was not z-sharded: {ranks[0]['coop_spatial_n']}")
+    sweep_err = float(np.abs(ranks[0]["sweep"] - sweep_ref).max())
+    log(f"[30 parallel] (c) the grid sweep of {VOLUME} over 2 ranks (2 patches, 28 K2 a rank) vs one rank: max|d| "
+        f"{sweep_err:.3e} (tol {SWEEP_TOL})")
+    check(sweep_err <= SWEEP_TOL, f"the sharded sweep differs from the one-rank sweep by {sweep_err}")
+    for i, (coop, slab_ref, slab64) in enumerate(zip(ranks[0]["coop"], slab_refs, slab64s)):
+        coop_err = float(np.abs(coop - slab_ref).max())
+        coop64, one64 = (float(np.abs(a[0] - slab64).max()) for a in (coop, slab_ref))
+        log(f"[30 parallel] (c) slab {i} of {COOP_DEPTH} planes z-sharded over 2 ranks vs one rank's slab: max|d| "
+            f"{coop_err:.3e} (tol {COOP_TOL}, cap {COOP_CAP}); from a float64 forward of the slab: z-sharded "
+            f"{coop64:.3e}, one rank {one64:.3e} (tol 2 x one rank + {COOP_TOL})")
+        check(coop_err <= COOP_CAP, f"cooperative slab {i} differs from the slab sweep by {coop_err}")
+        check(coop_err <= COOP_TOL or coop64 <= 2 * one64 + COOP_TOL,
+              f"cooperative slab {i} differs from the slab sweep by {coop_err} and from float64 by {coop64}")
+    for rank, res in enumerate(ranks):
+        col = res["collectives"]
+        log(f"[30 parallel] (d) {smi}: rank {rank} of 2 sharing the card (gloo on CUDA tensors), the trainer's steps "
+            f"(Adam): D-sharded f32 {res['sharded_step_ms']:.2f} ms (one step synchronized around each collective: "
+            f"{res['sharded_step_synced_ms']:.2f} ms, of which {col['calls']} all-reduces {col['ms']:.2f} ms, "
+            f"{col['bytes'] / 2**20:.1f} MiB) | data-parallel {res['dp_step_ms']:.2f} ms | grid sweep "
+            f"{res['sweep_ms']:.1f} ms | cooperative slab {res['coop_ms']:.1f} ms")
+    log(f"[30 parallel] (d) one rank: grid sweep {sweep_ref_ms:.1f} ms, slab {slab_ref_ms:.1f} ms; the two ranks ran "
+        f"{ranks_s:.1f} s with their start; phase 30 took {time.perf_counter() - phase_start:.1f} s. Two ranks "
+        "sharing one card say nothing of scaling")
+    return launches
+
+
 def synthetic_batch(rs):
     """One (raw, target) batch of the confocal recipe's shape: an instance
     label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
@@ -2956,7 +3354,11 @@ def main():
     # 29. checkpoint conversion, the exported forward and the HTTP server
     serving = serving_phase(device, volume, smi)
 
-    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth, **serving}
+    # 30. parallelism: the D-sharded step at world size 1 (NCCL), two ranks sharing the card (gloo)
+    parallel = parallel_phase(device, (train_batch, val_batch), volume, step_ms, smi)
+
+    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth, **serving,
+                     **parallel}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}

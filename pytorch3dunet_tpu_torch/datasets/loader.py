@@ -111,9 +111,15 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=1, collate_fn=None,
                  drop_last=False, prefetch_batches=None, seed=None, worker_mode=None,
-                 max_batches=None):
+                 max_batches=None, shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        # (index, count): yield only part `index` of `count` equal parts of
+        # each batch (one rank's share of its host's batch, whose order every
+        # rank of the host draws alike from the same seed)
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f"a batch of {batch_size} does not split into {shard[1]} equal parts")
+        self.shard = shard
         self.shuffle = shuffle
         self.num_workers = max(1, int(num_workers))
         self.collate_fn = collate_fn or default_collate
@@ -228,7 +234,12 @@ class DataLoader:
             rng.shuffle(indices)
         nb = len(self)
         for b in range(nb):
-            yield indices[b * self.batch_size : (b + 1) * self.batch_size]
+            batch = indices[b * self.batch_size : (b + 1) * self.batch_size]
+            if self.shard is not None:
+                index, count = self.shard
+                per = len(batch) // count
+                batch = batch[index * per : (index + 1) * per]
+            yield batch
 
     def _get_item(self, idx: int):
         if self._ds_locks is None:

@@ -1,6 +1,7 @@
 """Dataset utilities and loaders of the port: patch-grid slice builders,
-random scaling, stats, padding, and `get_train_loaders` / `get_test_loaders`
-for one process.
+random scaling, stats, padding, and `get_train_loaders` / `get_test_loaders`,
+with the multi-process branches of the JAX loaders (parallel/__init__.py has
+the device mapping).
 
 The port's own copy of pytorch3dunet_tpu/datasets/utils.py, with parity to the
 reference (pytorch3dunet/datasets/utils.py): `SliceBuilder` grid generation
@@ -15,9 +16,11 @@ which `datasets/hdf5.py` imports only where it reads a file.
 from typing import Any
 
 import numpy as np
+import torch
 from scipy.ndimage import zoom
 
 from pytorch3dunet_tpu_torch.datasets.loader import ConcatDataset, DataLoader
+from pytorch3dunet_tpu_torch.parallel import distributed
 from pytorch3dunet_tpu_torch.utils.misc import get_class, get_logger
 
 logger = get_logger("Dataset")
@@ -250,10 +253,48 @@ def _dataset_class(loaders_config: dict):
                                                 "pytorch3dunet_tpu_torch.datasets.utils"])
 
 
+def _data_parallel(config: dict) -> bool:
+    """Whether training runs data-parallel over the ranks: more than one
+    rank and no `trainer.spatial_sharding`, under which every rank reads the
+    same batches and takes its own D-slab."""
+    return distributed.world_size() > 1 and not config.get("trainer", {}).get("spatial_sharding", False)
+
+
+def _scaled_batch_size(loaders_config: dict, config: dict) -> int:
+    """The batch a host loads: the config's `batch_size` is each rank's, and
+    under data parallelism a host loads it for each of its ranks (JAX
+    `_scaled_batch_size`: the per-chip batch times the local devices)."""
+    batch_size = loaders_config.get("batch_size", 1)
+    n = len(distributed.host_ranks())
+    if _data_parallel(config) and n > 1:
+        logger.info(f"{n} ranks on this host. Using batch_size = {n} * {batch_size}")
+        batch_size *= n
+    return batch_size
+
+
+def _sorted_paths(dataset_cls_str: str, file_paths: list) -> list:
+    """The file list every host expands and orders alike (directories first:
+    sharding a directory entry would hand all its volumes to one host)."""
+    if "HDF5" in dataset_cls_str:
+        from pytorch3dunet_tpu_torch.datasets.hdf5 import traverse_h5_paths
+
+        return sorted(traverse_h5_paths(file_paths))
+    return sorted(file_paths)
+
+
 def get_train_loaders(config: dict, seed: int | None = None) -> dict:
     """Builds {'train': loader, 'val': loader} from config['loaders']
     (reference: datasets/utils.py:268-347): the train loader shuffles (from
-    `seed`, or numpy's global RNG when None), the val loader does not."""
+    `seed`, or numpy's global RNG when None), the val loader does not.
+
+    With more than one rank (JAX datasets/utils.py:287-339): under data
+    parallelism the train files shard across hosts (`shard_file_paths`), each
+    host's batch is the rank batch times its ranks and each rank takes its
+    part; every rank caps its epoch at the global minimum batch count (a rank
+    with more batches would wait forever in a collective) and drops a ragged
+    train batch. Validation files stay whole on every rank, so the scheduler's
+    decisions agree. Under `trainer.spatial_sharding` every rank builds the same
+    loaders from the same seed and takes its D-slab of each batch."""
     assert "loaders" in config, "Could not find data loaders configuration"
     loaders_config = config["loaders"]
     assert set(loaders_config["train"]["file_paths"]).isdisjoint(loaders_config["val"]["file_paths"]), (
@@ -261,30 +302,56 @@ def get_train_loaders(config: dict, seed: int | None = None) -> dict:
     )
 
     logger.info("Creating training and validation set loaders...")
+    dataset_cls_str = loaders_config.get("dataset", None) or "StandardHDF5Dataset"
     dataset_class = _dataset_class(loaders_config)
+    data_parallel = _data_parallel(config)
+    if data_parallel and distributed.process_count() > 1:
+        mine = distributed.shard_file_paths(_sorted_paths(dataset_cls_str, loaders_config["train"]["file_paths"]))
+        logger.info(f"Multi-host: process {distributed.process_index()} trains on {mine}")
+        loaders_config = dict(loaders_config, train=dict(loaders_config["train"], file_paths=mine))
     train_datasets = dataset_class.create_datasets(loaders_config, phase="train")
     val_datasets = dataset_class.create_datasets(loaders_config, phase="val")
 
     num_workers = loaders_config.get("num_workers", 1)
-    batch_size = loaders_config.get("batch_size", 1)
+    batch_size = _scaled_batch_size(loaders_config, config)
     logger.info(f"Number of workers for train/val dataloader: {num_workers}, batch size: {batch_size}")
     # threads by default: forking a process that runs torch's thread pools is unsafe
     worker_mode = loaders_config.get("worker_mode", "thread")
+    world = distributed.world_size()
+    shard = (distributed.local_rank(), len(distributed.host_ranks())) if data_parallel else None
+    train_loader = DataLoader(ConcatDataset(train_datasets), batch_size=batch_size, shuffle=True,
+                              num_workers=num_workers, drop_last=world > 1 or loaders_config.get("drop_last", False),
+                              seed=seed, worker_mode=worker_mode, shard=shard)
+    if world > 1:
+        global_min = distributed.all_reduce_int(len(train_loader), op=torch.distributed.ReduceOp.MIN)
+        if global_min != len(train_loader):
+            logger.info(f"Multi-process: capping train batches/epoch {len(train_loader)} -> {global_min} "
+                        "(global minimum across ranks)")
+        train_loader.max_batches = global_min
     return {
-        "train": DataLoader(ConcatDataset(train_datasets), batch_size=batch_size, shuffle=True,
-                            num_workers=num_workers, drop_last=loaders_config.get("drop_last", False), seed=seed,
-                            worker_mode=worker_mode),
+        "train": train_loader,
         "val": DataLoader(ConcatDataset(val_datasets), batch_size=batch_size, shuffle=False,
                           num_workers=num_workers, worker_mode=worker_mode),
     }
 
 
 def get_test_loaders(config: dict):
-    """Yields one loader per test file (reference: datasets/utils.py:426-475)."""
+    """Yields one loader per test file (reference: datasets/utils.py:426-475).
+    With more than one host each predicts its own share of the files (JAX
+    datasets/utils.py:365-386); a host with none yields nothing."""
     assert "loaders" in config, "Could not find data loaders configuration"
     loaders_config = config["loaders"]
 
     logger.info("Creating test set loaders...")
+    if distributed.process_count() > 1:
+        dataset_cls_str = loaders_config.get("dataset", None) or "StandardHDF5Dataset"
+        paths = _sorted_paths(dataset_cls_str, loaders_config["test"]["file_paths"])
+        mine = distributed.shard_file_paths(paths, allow_empty=True)
+        logger.info(f"Multi-host: process {distributed.process_index()} predicts {len(mine)}/{len(paths)} files: "
+                    f"{mine}")
+        loaders_config = dict(loaders_config, test=dict(loaders_config["test"], file_paths=mine))
+        if not mine:
+            return
     test_datasets = _dataset_class(loaders_config).create_datasets(loaders_config, phase="test")
 
     num_workers = loaders_config.get("num_workers", 1)

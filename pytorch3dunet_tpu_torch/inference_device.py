@@ -28,16 +28,28 @@ Normalization: the common test-transformer pipelines run on the device --
 statistics, min-max `Normalize`, and per-patch `PercentileNormalizer`
 (`detect_device_path`); other pipelines stay on the host loop.
 
-The JAX package's sharded sweeps (`mesh`, `spatial_mesh`) are not ported
-(ROADMAP Queue 1, "Parallelism").
+The sharded sweeps (JAX inference_device.py:310-390), over the ranks of one
+host (parallel/__init__.py):
+- `mesh`: the patch grid splits across the ranks; each stitches its patches
+  into full-volume `out` and `weights` buffers (always weighted: `blend:
+  assign` weighs each patch 1, so overlaps average) and one all-reduce sums
+  them;
+- `spatial_mesh`: every patch's depth splits across the ranks, the model runs
+  with halo-exchanged convs and all-reduced statistics (parallel/spatial.py),
+  per-patch normalization statistics are all-reduced, and every rank stitches
+  the gathered probabilities, so its buffers hold the whole result.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch3dunet_tpu_torch.models.unet import is_model_2d
 from pytorch3dunet_tpu_torch.ops.tta import flip_combos, patch_axes_to_array_axes, tta_average
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_PARALLELISM, get_logger, not_ported
+from pytorch3dunet_tpu_torch.parallel.mesh import all_reduce_, gather
+from pytorch3dunet_tpu_torch.parallel.spatial import (spatial_axis, spatial_min_local, spatial_pool_d,
+                                                      spatial_shardable, validate_spatial_model)
+from pytorch3dunet_tpu_torch.utils.misc import get_logger
 
 logger = get_logger("DeviceSlidingWindow")
 
@@ -107,20 +119,22 @@ class DeviceSlidingWindow:
             'percentile' | None.
         stats: dict with 'mean'/'std' ('pmin'/'pmax' for percentile).
         blend: 'assign' (reference parity) or 'gaussian' (weighted blending).
-        mesh, spatial_mesh: the JAX package's sharded sweeps; only None (one
-            device) is ported.
+        mesh: a `parallel.mesh.Mesh` of this host's ranks; the patch grid
+            splits across them (a mesh of one rank: the unsharded sweep).
         patch_batch: patches forwarded together; the last batch may be smaller
             (the JAX sweep pads it with masked sentinel starts to keep its
             shapes static: the same result).
         tta_axes: patch-space (z, y, x) axes for mirror-flip test-time
             augmentation; every flip combination is forwarded and the
             probabilities averaged. Empty = off. A 2D model cannot mirror z.
+        spatial_mesh: a `Mesh` of this host's ranks over which every patch's
+            depth is sharded (cooperative sweep): a 3D model the sharding
+            supports, patch_batch 1, no percentile normalization, no z-mirror
+            TTA, and a padded patch depth that shards exactly.
     """
 
     def __init__(self, model, patch_shape, halo_shape, normalize=None, stats=None, blend="assign", mesh=None,
                  patch_batch=1, tta_axes=(), spatial_mesh=None):
-        if mesh is not None or spatial_mesh is not None:
-            raise not_ported("The sharded device sweep (mesh, spatial_mesh)", ITEM_PARALLELISM)
         if blend not in ("assign", "gaussian"):
             raise ValueError(f"unknown blend {blend!r}: expected 'assign' or 'gaussian'")
         self.model = model
@@ -137,6 +151,33 @@ class DeviceSlidingWindow:
         self.stats = stats or {}
         self.blend = blend
         self.tta_combos = flip_combos(patch_axes_to_array_axes(tta_axes, self.is_2d)) if tta_axes else []
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.spatial_mesh = spatial_mesh if spatial_mesh is not None and spatial_mesh.size > 1 else None
+        # (out, weights) summed and divided at the end: gaussian blending, and
+        # every sharded sweep (an assign one weighs each patch 1)
+        self.weighted = blend == "gaussian" or self.mesh is not None or self.spatial_mesh is not None
+        if self.spatial_mesh is not None:
+            self._check_spatial(tta_axes)
+
+    def _check_spatial(self, tta_axes):
+        """The cooperative sweep's refusals (JAX inference_device.py:130-148)."""
+        if self.mesh is not None:
+            raise ValueError("spatial_mesh and (grid) mesh are mutually exclusive")
+        if self.is_2d:
+            raise ValueError("spatial slab sharding is for 3D models")
+        if self.patch_batch != 1:
+            raise ValueError("spatial sharding sweeps one (large) patch per step: patch_batch must be 1")
+        if self.normalize == "percentile":
+            raise ValueError("percentile normalization has no cross-shard reduction; use the grid sweep")
+        if 0 in tta_axes:
+            raise ValueError("z-mirror TTA cannot flip across spatial shards; restrict tta_axes to (1, 2)")
+        validate_spatial_model(self.model)
+        pz = self.patch_shape[0] + 2 * self.halo_shape[0]
+        n, levels = self.spatial_mesh.size, len(self.model.encoders)
+        if not spatial_shardable(pz, levels, n, pool=spatial_pool_d(self.model),
+                                 min_local=spatial_min_local(self.model)):
+            raise ValueError(f"padded patch depth {pz} is not exactly shardable {n} ways through {levels} pooling "
+                             "levels")
 
     @property
     def device(self) -> torch.device:
@@ -189,9 +230,9 @@ class DeviceSlidingWindow:
         out_spatial = tuple(s - 2 * h for s, h in zip(padded_volume.shape[1:], self.halo_shape))
         out = torch.zeros((cout, *out_spatial), dtype=torch.float32, device=padded_volume.device)
         weights = window = None
-        if self.blend == "gaussian":
+        if self.weighted:
             weights = torch.zeros(out_spatial, dtype=torch.float32, device=padded_volume.device)
-            window = torch.from_numpy(_gaussian_window(self.patch_shape)).to(padded_volume.device)
+            window = self._window(padded_volume.device)
         cz, cy, cx = self.patch_shape
         starts = [tuple(int(v) for v in s) for s in starts]  # host ints: slicing issues no sync
         for i in range(0, len(starts), self.patch_batch):
@@ -204,6 +245,66 @@ class DeviceSlidingWindow:
                 else:
                     out[(slice(None), *region)] += core * window
                     weights[region] += window
+        return out, weights
+
+    def _window(self, device):
+        """The weight of each core voxel: the Gaussian window under `blend:
+        gaussian`, ones otherwise (a weighted assign sweep averages overlaps)."""
+        if self.blend == "gaussian":
+            return torch.from_numpy(_gaussian_window(self.patch_shape)).to(device)
+        return torch.ones(self.patch_shape, dtype=torch.float32, device=device)
+
+    def _sweep_sharded(self, padded_volume, starts, stats):
+        """The patch grid split across the mesh in contiguous shares (JAX
+        `_sweep_sharded`): each rank accumulates its share into full-volume
+        buffers and one all-reduce of each sums the partials."""
+        share = -(-len(starts) // self.mesh.size)
+        mine = starts[self.mesh.index * share:(self.mesh.index + 1) * share]
+        out, weights = self._accumulate(padded_volume, mine, stats)
+        return all_reduce_(out, self.mesh), all_reduce_(weights, self.mesh)
+
+    def _normalize_chunk(self, chunk, stats, patch_elems):
+        """Per-patch normalization of a depth shard of the patch, with the
+        statistics reduced over the whole patch (JAX `_normalize_chunk_psum`)."""
+        if self.normalize == "standardize_patch":
+            sums = all_reduce_(torch.stack([chunk.sum(), (chunk * chunk).sum()]), self.spatial_mesh)
+            mean = sums[0] / patch_elems
+            std = torch.sqrt(torch.clamp(sums[1] / patch_elems - mean * mean, min=0.0))
+            return (chunk - mean) / torch.clamp(std, min=1e-10)
+        if self.normalize == "normalize":
+            # one MAX all-reduce of (-min, max)
+            ends = all_reduce_(torch.stack([-chunk.min(), chunk.max()]), self.spatial_mesh, dist.ReduceOp.MAX)
+            lo, hi = -ends[0], ends[1]
+            return torch.clamp(2 * (chunk - lo) / (hi - lo + 1e-10) - 1, -1, 1)
+        return normalize(chunk, self.normalize, stats)
+
+    def _sweep_spatial(self, padded_volume, starts, stats):
+        """Every patch's depth split across the space mesh (JAX
+        `_sweep_spatial`): each rank slices its depth shard of the halo'd
+        patch from the whole volume, normalizes it with all-reduced
+        statistics, runs the model under `spatial_axis`, and stitches the
+        gathered probabilities; every rank's buffers hold the whole result."""
+        mesh = self.spatial_mesh
+        hz, hy, hx = self.halo_shape
+        cz, cy, cx = self.patch_shape
+        pz, py, px = cz + 2 * hz, cy + 2 * hy, cx + 2 * hx
+        dz = pz // mesh.size
+        cout = self.model.out_channels
+        out_spatial = tuple(s - 2 * h for s, h in zip(padded_volume.shape[1:], self.halo_shape))
+        out = torch.zeros((cout, *out_spatial), dtype=torch.float32, device=padded_volume.device)
+        weights = torch.zeros(out_spatial, dtype=torch.float32, device=padded_volume.device)
+        window = self._window(padded_volume.device)
+        patch_elems = pz * py * px * padded_volume.shape[0]
+        for z, y, x in (tuple(int(v) for v in s) for s in starts):
+            z0 = z + mesh.index * dz
+            chunk = self._normalize_chunk(padded_volume[:, z0:z0 + dz, y:y + py, x:x + px], stats, patch_elems)
+            with spatial_axis(mesh):
+                probs = self._apply_model(chunk[None])
+            full = gather(probs, mesh, 2)[0]
+            core = full[:, hz:hz + cz, hy:hy + cy, hx:hx + cx].float()
+            region = (slice(z, z + cz), slice(y, y + cy), slice(x, x + cx))
+            out[(slice(None), *region)] += core * window
+            weights[region] += window
         return out, weights
 
     def upload(self, padded_volume) -> torch.Tensor:
@@ -221,7 +322,12 @@ class DeviceSlidingWindow:
     def _sweep(self, padded_volume, starts, stats=None):
         """(out, weights|None) as tensors on the device, undivided."""
         with torch.inference_mode():
-            return self._accumulate(self.upload(padded_volume), starts, self._stats_tensors(stats))
+            volume, stats = self.upload(padded_volume), self._stats_tensors(stats)
+            if self.mesh is not None:
+                return self._sweep_sharded(volume, starts, stats)
+            if self.spatial_mesh is not None:
+                return self._sweep_spatial(volume, starts, stats)
+            return self._accumulate(volume, starts, stats)
 
     def sweep_raw(self, padded_volume, starts: np.ndarray, stats=None):
         """One sweep over `starts`; returns numpy (out (Cout, D, H, W),

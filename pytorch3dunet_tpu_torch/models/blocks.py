@@ -23,6 +23,11 @@ identity. Every backward but the 3x3x3 conv's (ops/conv3d.py
 Each layer computes in its input's dtype with its float32 parameters cast to
 it, except the norms, which compute in float32 on a float32 copy of a bfloat16
 input and cast back (JAX blocks.py:126-128, 226-236).
+
+Under a space mesh (parallel/spatial.py `spatial_axis`) a block sees a D-slab:
+GroupNorm all-reduces its moments, and a deconv decoder takes a 2-plane halo
+and gathers its nearest fix-up. Under a data mesh (parallel/mesh.py
+`data_axis`) train-mode BatchNorm all-reduces its batch moments (sync BN).
 """
 
 import contextlib
@@ -34,6 +39,8 @@ import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.models.se import ChannelSpatialSELayer3D
 from pytorch3dunet_tpu_torch.ops.conv3d import Conv2d, Conv3d, cast_to
+from pytorch3dunet_tpu_torch.parallel.mesh import active_data_axis, all_reduce_sum
+from pytorch3dunet_tpu_torch.parallel.spatial import active_spatial_axis, conv_transpose_sharded
 
 # the upsample modes of a Decoder (JAX unet.py `_resolve_upsample`); None: no resize
 UPSAMPLE_MODES = ("nearest", "linear", "bilinear", "trilinear", "area", "deconv", None)
@@ -49,8 +56,35 @@ class _Float32Norm:
         return super().forward(x)
 
 
+def _moments(x, dims, count, mesh):
+    """(mean, biased variance) over `dims` of x, each summed locally and
+    all-reduced over `mesh`: the mean first, then the squared deviations from
+    it (two passes, as exact as the unsharded statistics)."""
+    shape = [s if i not in dims else 1 for i, s in enumerate(x.shape)]
+    mean = all_reduce_sum(x.sum(dims), mesh) / count
+    centered = x - mean.view(shape)
+    var = all_reduce_sum((centered * centered).sum(dims), mesh) / count
+    return mean, var, centered, shape
+
+
 class GroupNorm(_Float32Norm, nn.GroupNorm):
-    pass
+    """`nn.GroupNorm` in float32; under a space mesh (parallel/spatial.py)
+    the per-(sample, group) moments are all-reduced over the D-slabs and every
+    rank normalizes with the global ones (JAX blocks.py:104-118)."""
+
+    def forward(self, x):
+        mesh = active_spatial_axis()
+        if mesh is None:
+            return super().forward(x)
+        x32 = x.float() if x.dtype == torch.bfloat16 else x
+        n, c = x32.shape[:2]
+        groups = x32.unflatten(1, (self.num_groups, c // self.num_groups))
+        dims = tuple(range(2, groups.ndim))
+        count = groups[0, 0].numel() * mesh.size
+        _, var, centered, shape = _moments(groups, dims, count, mesh)
+        y = (centered * torch.rsqrt(var + self.eps).view(shape)).flatten(1, 2)
+        affine = (1, c) + (1,) * (x32.ndim - 2)
+        return (y * self.weight.view(affine) + self.bias.view(affine)).to(x.dtype)
 
 
 # set while `model.remat` recomputes a level in backward (`recomputing`)
@@ -71,6 +105,10 @@ def recomputing():
 
 class _BatchNorm(_Float32Norm):
     def forward(self, x):
+        mesh = active_data_axis()
+        if self.training and mesh is not None:
+            x32 = x.float() if x.dtype == torch.bfloat16 else x
+            return self._synced(x32, mesh).to(x.dtype)
         if self.training and getattr(_recompute, "active", False):
             # throwaway copies of the running statistics: the same call as
             # the forward's, so autograd saves the same tensors
@@ -78,6 +116,26 @@ class _BatchNorm(_Float32Norm):
             return F.batch_norm(x32, self.running_mean.clone(), self.running_var.clone(), self.weight, self.bias,
                                 True, 0.0, self.eps).to(x.dtype)
         return super().forward(x)
+
+    def _synced(self, x, mesh):
+        """BatchNorm in train mode with the batch moments all-reduced over the
+        data mesh (sync BN): the statistics of the global batch, as the JAX
+        step over one global array computes them. The running statistics move
+        as torch's do (the unbiased variance, ROADMAP F2), once a step: not
+        while a level is recomputed (`recomputing`)."""
+        dims = (0, *range(2, x.ndim))
+        count = (x.numel() // x.shape[1]) * mesh.size
+        mean, var, centered, shape = _moments(x, dims, count, mesh)
+        y = centered * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        if self.track_running_stats and not getattr(_recompute, "active", False):
+            with torch.no_grad():
+                self.num_batches_tracked += 1
+                factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None else self.momentum)
+                self.running_mean.lerp_(mean.detach(), factor)
+                self.running_var.lerp_(var.detach() * (count / max(count - 1, 1)), factor)
+        return y
 
 
 class BatchNorm3d(_BatchNorm, nn.BatchNorm3d):
@@ -268,6 +326,10 @@ class TransposeConvUpsampling(nn.Module):
 
         def forward(self, x, size):
             conv = self.conv_transposed
+            mesh = active_spatial_axis()
+            if mesh is not None and x.ndim == 5:
+                # a D-slab: 2-plane halo, depth-uncropped deconv, fix-up gather
+                return conv_transpose_sharded(x, cast_to(conv.weight, x), mesh, size)
             # flax pads the stride-dilated input by (1, 1) on each axis: torch's
             # padding k - 2 for k >= 2; at k = 1 the output gains a zero on each side
             padding = tuple(max(k - 2, 0) for k in conv.kernel_size)

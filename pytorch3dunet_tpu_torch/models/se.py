@@ -4,7 +4,8 @@ Counterparts of pytorch3dunet_tpu/models/se.py and of the reference
 (pytorch3dunet/unet3d/se.py): channel SE (Hu et al., arXiv:1709.01507), spatial
 SE and concurrent scSE (Roy et al., arXiv:1803.02579). Module names are the
 reference's (`cSE.fc1`, `sSE.conv`), the keys the JAX package's torch interop
-reads and writes. The JAX layers' optimization barrier (`_guard`) works around
+reads and writes. Under a space mesh (parallel/spatial.py) the channel squeeze
+is the mean over the whole volume: an all-reduced sum over the global voxel count. The JAX layers' optimization barrier (`_guard`) works around
 a TPU compiler fault and has no counterpart here. The layers compute in their
 input's dtype, with the float32 parameters cast to it.
 """
@@ -14,6 +15,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.ops.conv3d import cast_to
+from pytorch3dunet_tpu_torch.parallel.mesh import all_reduce_sum
+from pytorch3dunet_tpu_torch.parallel.spatial import active_spatial_axis
 
 
 class ChannelSELayer3D(nn.Module):
@@ -27,7 +30,14 @@ class ChannelSELayer3D(nn.Module):
         self.fc2 = nn.Linear(reduced, num_channels, bias=True)
 
     def forward(self, x):
-        squeezed = x.mean(dim=(2, 3, 4))
+        mesh = active_spatial_axis()
+        if mesh is None:
+            squeezed = x.mean(dim=(2, 3, 4))
+        else:
+            # a D-slab: the squeeze is the mean over the whole volume, an
+            # all-reduced sum over the global voxel count (JAX se.py:59-66)
+            total = all_reduce_sum(x.sum(dim=(2, 3, 4), dtype=torch.float32), mesh)
+            squeezed = (total / (x[0, 0].numel() * mesh.size)).to(x.dtype)
         hidden = torch.relu(F.linear(squeezed, cast_to(self.fc1.weight, x), cast_to(self.fc1.bias, x)))
         gate = torch.sigmoid(F.linear(hidden, cast_to(self.fc2.weight, x), cast_to(self.fc2.bias, x)))
         return x * gate[:, :, None, None, None]

@@ -32,7 +32,10 @@ leaves the weight gradient to XLA, outside any kernel).
 `Conv3d` is the model's 3D conv layer (NCDHW in and out, torch weight layout).
 It runs every 3x3x3 pad-1 conv through the above, and any other kernel size or
 padding (the 1x1 `final_conv` and ResNet projection, `conv_kernel_size: [1, 3,
-3]`, ...) through cuDNN's `F.conv3d`: the JAX package's `conv_pallas.supported`
+3]`, ...) through cuDNN's `F.conv3d`. Under a space mesh (parallel/spatial.py)
+x is a D-slab: a conv with a depth extent takes one plane of each neighbour
+(`halo_exchange_d`) in place of its depth padding; on the kernels that is the
+pad-1 conv of the D + 2 planes with planes [1:-1] kept (no kernel changes): the JAX package's `conv_pallas.supported`
 refuses those shapes and computes them outside any Pallas kernel. `Conv2d`, the
 2D families' conv, is `F.conv2d` throughout, as the JAX package runs every 2D
 conv through `lax.conv_general_dilated`.
@@ -46,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.ops import build
+from pytorch3dunet_tpu_torch.parallel.spatial import active_spatial_axis, halo_exchange_d
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the plain version also runs float64, for reference steps on the card
@@ -293,22 +297,38 @@ class Conv3d(nn.Conv3d):
         self.on_kernels = self.kernel_size == (3, 3, 3) and self.padding == (1, 1, 1)
 
     def forward(self, x):
+        mesh = active_spatial_axis() if self.kernel_size[0] > 1 else None
+        if mesh is not None and self.padding[0] != (self.kernel_size[0] - 1) // 2:
+            raise ValueError(f"spatial sharding needs 'same' depth padding, got kernel {self.kernel_size} and "
+                             f"padding {self.padding}")
         if not self.on_kernels:
-            return F.conv3d(x, cast_to(self.weight, x), cast_to(self.bias, x), padding=self.padding)
+            padding = self.padding
+            if mesh is not None:
+                # a D-slab: the neighbours' planes in place of the depth padding
+                x = halo_exchange_d(x, mesh, self.padding[0], dim=2)
+                padding = (0, *self.padding[1:])
+            return F.conv3d(x, cast_to(self.weight, x), cast_to(self.bias, x), padding=padding)
         x_cl = x.permute(0, 2, 3, 4, 1)
         if not x_cl.is_contiguous():
             x_cl = x_cl.contiguous()
             Conv3d.input_copies += 1
+        if mesh is not None:
+            # a D-slab of D planes: one plane of each neighbour on either side,
+            # the kernels' pad-1 conv on the D + 2 planes, and planes [1:-1]
+            # kept, the depth-valid conv (JAX ops/conv.py:152-158)
+            x_cl = halo_exchange_d(x_cl, mesh, 1, dim=1)
         # the weights in x's dtype: in a bf16 step the conv's autograd sees
         # bf16 w and b, and the f32 parameters' gradients come back through
         # the cast's own autograd
         w, b = cast_to(self.weight, x).permute(2, 3, 4, 1, 0), cast_to(self.bias, x)
         if _force_plain:
             y = conv3d_fwd_reference(x_cl, w, b)
-        elif torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, self.weight, self.bias)):
+        elif torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x_cl, w, b)):
             y = Conv3dFunction.apply(x_cl, w, b)
         else:
             y = conv3d_fwd(x_cl, w, b)
+        if mesh is not None:
+            y = y[:, 1:-1]
         return y.permute(0, 4, 1, 2, 3)
 
 

@@ -12,6 +12,11 @@ loop stays the default. `LazyPredictor` is always the host loop.
 
 With `predictor.performance_metric` each volume is scored against its ground
 truth; the per-class average and the average over the volumes are logged.
+
+On N ranks (P3DUNET_COORDINATOR, P3DUNET_NUM_PROCESSES, P3DUNET_PROCESS_ID;
+parallel/distributed.py) the files shard across hosts, and the ranks of a host
+share each volume's device sweep (`predictor.shard`); the host's first rank
+writes the outputs and runs any other predictor alone.
 """
 
 import os
@@ -23,6 +28,7 @@ import torch
 from pytorch3dunet_tpu_torch.config import load_config, resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_test_loaders
 from pytorch3dunet_tpu_torch.models.unet import get_model
+from pytorch3dunet_tpu_torch.parallel import distributed
 from pytorch3dunet_tpu_torch.predictor import (DeviceSlidingWindowPredictor, DSB2018Predictor, LazyPredictor,
                                                 StandardPredictor)
 from pytorch3dunet_tpu_torch.utils.misc import get_logger
@@ -56,13 +62,16 @@ def get_predictor(model, config: dict):
 def run(config: dict) -> list:
     """Builds the model, loads its weights and predicts every test file;
     returns the per-volume `performance_metric` scores (empty without one)."""
-    device = config["device"] = resolve_device(config.get("device"))
+    device = config["device"] = distributed.device_for_rank(resolve_device(config.get("device")))
     logger.info(f"Using device: {device}")
     model = get_model(config["model"])
     logger.info(f"Loading model from {config['model_path']}...")
     load_weights(model, config["model_path"])
     model = model.to(device).eval()
     predictor = get_predictor(model, config)
+    if distributed.local_rank() != 0 and not isinstance(predictor, DeviceSlidingWindowPredictor):
+        logger.info(f"{type(predictor).__name__} runs on the host's first rank; rank {distributed.rank()} idles")
+        return []
     metrics = []
     try:
         for test_loader in get_test_loaders(config):
@@ -82,14 +91,23 @@ def run(config: dict) -> list:
                 logger.exception("write-behind save ALSO failed while handling the error above")
     if metrics:
         scores = np.asarray(metrics, dtype=np.float64)
-        logger.info(f"Per-class average metric: {scores.mean(axis=0)}")
-        logger.info(f"Average metric: {scores.mean()}")
+        # each host predicted its own files: these average over that share
+        prefix = f"[process {distributed.process_index()}] " if distributed.process_count() > 1 else ""
+        logger.info(f"{prefix}Per-class average metric: {scores.mean(axis=0)}")
+        logger.info(f"{prefix}Average metric: {scores.mean()}")
     return metrics
 
 
 def main(argv=None) -> list:
+    """Loads the config, joins the other ranks when P3DUNET_COORDINATOR is
+    set, and predicts (`run`)."""
     config, _ = load_config(argv)
-    return run(config)
+    started = not distributed.is_initialized() and distributed.initialize_from_env(config["device"])
+    try:
+        return run(config)
+    finally:
+        if started:
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

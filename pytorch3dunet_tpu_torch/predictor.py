@@ -41,6 +41,10 @@ from pytorch3dunet_tpu_torch.augment.transforms import Transformer
 from pytorch3dunet_tpu_torch.datasets.utils import SliceBuilder, calculate_stats, mirror_pad, remove_padding
 from pytorch3dunet_tpu_torch.models.unet import is_model_2d
 from pytorch3dunet_tpu_torch.ops.tta import flip_combos, patch_axes_to_array_axes, resolve_tta_axes, tta_average
+from pytorch3dunet_tpu_torch.parallel import distributed
+from pytorch3dunet_tpu_torch.parallel.mesh import host_mesh
+from pytorch3dunet_tpu_torch.parallel.spatial import (spatial_min_local, spatial_pool_d, spatial_shardable,
+                                                      validate_spatial_model)
 from pytorch3dunet_tpu_torch.utils.misc import get_logger
 from pytorch3dunet_tpu_torch.utils.ndimage import label as cc_label
 
@@ -420,9 +424,13 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
     Extra config keys:
         blend: 'assign' (default, reference parity) or 'gaussian'
             (Gaussian-weighted patch blending for overlapping grids).
-        shard: split the patch grid across the visible devices. The port runs
-            on one device, where it changes nothing (as in the JAX package on
-            one device).
+        shard: split each volume across the ranks of this host (default
+            true; one rank: nothing to split). The patch grid splits across
+            them, or, when `patch_mode: slab` plans fewer slabs than ranks,
+            each slab's depth (the cooperative sweep). A sharded sweep is
+            always weighted, so `blend: assign` averages overlapping patches
+            there (a warning says so). Only the host's first rank writes the
+            output; with `shard: false` it alone predicts.
         max_device_voxels: slab the sweep when the padded volume is larger
             than this many elements (default 1e9).
         patch_batch: patches per forward (default 1 for a 3D model, 16 for a
@@ -452,7 +460,7 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         super().__init__(*args, **kwargs)
         self.blend = blend
         self.write_behind = bool(write_behind)
-        del shard  # one device: nothing to shard (see the class docstring)
+        self.shard = bool(shard)
         self.max_device_voxels = max_device_voxels
         self.patch_batch = patch_batch
         if patch_mode not in ("grid", "slab"):
@@ -467,26 +475,72 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         self._writer = None
         self._write_future = None
 
-    def _get_sweep(self, patch_shape, halo_shape, normalize, stats):
+    def _mesh_active(self) -> bool:
+        """Whether volumes split across this host's ranks (JAX
+        `_mesh_active`: the local devices; each host predicts its own files)."""
+        return self.shard and len(distributed.host_ranks()) > 1
+
+    def _participates(self) -> bool:
+        """Whether this rank sweeps: every rank of a sharded host, else only
+        the host's first rank, which also writes the outputs."""
+        return distributed.local_rank() == 0 or self._mesh_active()
+
+    def _get_sweep(self, patch_shape, halo_shape, normalize, stats, spatial_n=0):
         from pytorch3dunet_tpu_torch.inference_device import DeviceSlidingWindow
 
+        host = host_mesh() if self._mesh_active() else None
+        spatial_mesh = host if spatial_n > 1 else None
+        mesh = host if spatial_mesh is None else None
         patch_batch = self._planned_patch_batch or self.patch_batch or (16 if is_model_2d(self.model) else 1)
+        if spatial_mesh is not None:
+            patch_batch = 1
         # the key is structural: per-volume stats are passed per call
-        key = (tuple(patch_shape), tuple(halo_shape), normalize, patch_batch)
+        key = (tuple(patch_shape), tuple(halo_shape), normalize, patch_batch, mesh is not None, spatial_n)
         if key not in self._sweeps:
+            if mesh is not None:
+                logger.info(f"Sharding the patch grid over {mesh.size} ranks")
+            if spatial_mesh is not None:
+                logger.info(f"Sharding each patch's z-axis over {spatial_n} ranks (cooperative)")
             self._sweeps[key] = DeviceSlidingWindow(
                 self.model, patch_shape, halo_shape, normalize=normalize, stats=stats, blend=self.blend,
-                patch_batch=patch_batch, tta_axes=self._tta_patch_axes())
+                mesh=mesh, patch_batch=patch_batch, tta_axes=self._tta_patch_axes(), spatial_mesh=spatial_mesh)
         return self._sweeps[key]
 
-    def _plan_geometry(self, spatial, patch_shape, starts, halo_shape, cin):
+    def _plan_spatial_slab(self, spatial, max_slab_z, grid_patch_shape, halo_shape, normalize, min_slab_z=64):
+        """The cooperative arm of `patch_mode: slab` for a host with more
+        ranks than slabs (JAX predictor.py:495-530): every slab's depth shards
+        across all the host's ranks. Searches down from `max_slab_z` for the
+        deepest slab whose padded depth shards exactly that many ways through
+        the model's pooling. Returns (n_ranks, (slab_patch_shape, starts)), or
+        (0, None) when no depth from the thin-slab floor up does, or the model
+        or pipeline cannot shard (BatchNorm, anisotropic deconv, percentile
+        normalization, z-mirror TTA)."""
+        if normalize == "percentile" or 0 in self._tta_patch_axes():
+            return 0, None
+        try:
+            validate_spatial_model(self.model)
+        except ValueError as e:
+            logger.info(f"slab z-sharding unavailable for this model: {e}")
+            return 0, None
+        n = len(distributed.host_ranks())
+        d, h, w = (int(v) for v in spatial)
+        hz = halo_shape[0]
+        pool, min_local, levels = spatial_pool_d(self.model), spatial_min_local(self.model), len(self.model.encoders)
+        floor = max(min_slab_z, grid_patch_shape[0])
+        for slab_z in range(min(max_slab_z, d), floor - 1, -1):
+            if spatial_shardable(slab_z + 2 * hz, levels, n, pool=pool, min_local=min_local):
+                return n, ((slab_z, h, w), _slab_starts(d, slab_z))
+        return 0, None
+
+    def _plan_geometry(self, spatial, patch_shape, starts, halo_shape, cin, normalize=None):
         """Applies `patch_mode` to the configured (patch_shape, starts) grid:
         'grid' returns them unchanged; 'slab' plans full-plane z-slabs, else
         strips, else keeps the grid; for a 2D model, whole planes (JAX
-        predictor.py:538-575)."""
+        predictor.py:538-637). Returns (patch_shape, starts, spatial_n):
+        spatial_n > 1 shards each slab's depth over that many ranks."""
         self._planned_patch_batch = None
         if self.patch_mode != "slab":
-            return patch_shape, starts
+            return patch_shape, starts, 0
         n_grid = len(starts)
         if is_model_2d(self.model):
             d = int(spatial[0])
@@ -498,27 +552,58 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
                     self._planned_patch_batch = patch_batch
                     logger.info(f"patch_mode 'slab': {len(plan[1])} full-plane 2D patches replace the "
                                 f"{n_grid}-tile grid (patch_batch={patch_batch})")
-                    return plan
+                    return (*plan, 0)
             logger.warning(f"patch_mode 'slab': {spatial[1]}x{spatial[2]} planes x patch_batch={patch_batch} "
                            f"exceed max_patch_voxels={self.max_patch_voxels}; keeping the configured grid")
-            return patch_shape, starts
+            return patch_shape, starts, 0
         plan = _plan_slab_grid(spatial, patch_shape, halo_shape, cin, self.max_patch_voxels)
-        if plan is not None:
+        n_dev = len(distributed.host_ranks()) if self._mesh_active() else 1
+        if plan is None:
+            # slab refused (plane too large / slabs too thin): try the strip
+            # geometry before surrendering to the grid
+            strip = _plan_strip_grid(spatial, patch_shape, halo_shape, cin, self.max_patch_voxels)
+            if strip is not None and (len(strip[1]) >= n_dev or n_dev > n_grid):
+                shape = strip[0]
+                logger.info(f"patch_mode 'slab': no full-plane slab fits; {len(strip[1])} {shape[0]}x{shape[1]}x"
+                            f"{shape[2]} strips replace the {n_grid}-patch grid (halo only on the short axes)")
+                return (*strip, 0)
+            if strip is not None:
+                logger.info(f"patch_mode 'slab': {len(strip[1])} strips would idle {n_dev - len(strip[1])} of "
+                            f"{n_dev} ranks; keeping the {n_grid}-patch grid")
+            else:
+                logger.warning(f"patch_mode 'slab': neither a full-plane slab nor a strip fits max_patch_voxels="
+                               f"{self.max_patch_voxels} for the {spatial[1]}x{spatial[2]} plane; keeping the "
+                               "configured patch grid")
+            return patch_shape, starts, 0
+        if len(plan[1]) >= n_dev:
             logger.info(f"patch_mode 'slab': {len(plan[1])} full-plane z-slab(s) of depth {plan[0][0]} replace "
                         f"the {n_grid}-patch grid")
-            return plan
-        # slab refused (plane too large / slabs too thin): try the strip
-        # geometry before surrendering to the grid
-        strip = _plan_strip_grid(spatial, patch_shape, halo_shape, cin, self.max_patch_voxels)
-        if strip is not None:
-            shape = strip[0]
-            logger.info(f"patch_mode 'slab': no full-plane slab fits; {len(strip[1])} {shape[0]}x{shape[1]}x"
-                        f"{shape[2]} strips replace the {n_grid}-patch grid (halo only on the short axes)")
-            return strip
-        logger.warning(f"patch_mode 'slab': neither a full-plane slab nor a strip fits max_patch_voxels="
-                       f"{self.max_patch_voxels} for the {spatial[1]}x{spatial[2]} plane; keeping the configured "
-                       "patch grid")
-        return patch_shape, starts
+            return (*plan, 0)
+        # fewer slabs than ranks: first try sharding every slab's depth over them
+        spatial_n, sp_plan = self._plan_spatial_slab(spatial, plan[0][0], patch_shape, halo_shape, normalize)
+        if spatial_n == n_dev:
+            logger.info(f"patch_mode 'slab': {len(sp_plan[1])} z-slab(s) of depth {sp_plan[0][0]}, each z-sharded "
+                        f"over all {spatial_n} ranks cooperatively")
+            return (*sp_plan, spatial_n)
+        if n_dev <= n_grid:
+            # a partly idle host loses to the grid split across all its ranks
+            logger.info(f"patch_mode 'slab': {len(plan[1])} slabs would idle {n_dev - len(plan[1])} of {n_dev} "
+                        f"ranks and no slab depth is z-shardable {n_dev} ways; keeping the {n_grid}-patch grid "
+                        "(set 'shard: false' to prefer slabs)")
+            return patch_shape, starts, 0
+        logger.info(f"patch_mode 'slab': {len(plan[1])} z-slab(s) of depth {plan[0][0]} (grid and slabs both "
+                    f"underfill the {n_dev} ranks; z-sharding unavailable)")
+        return (*plan, 0)
+
+    def _warn_overlap(self, starts, patch_shape):
+        """`blend: assign` with an overlapping grid averages on a sharded host
+        (JAX predictor.py:692-699)."""
+        overlapping = any(len(u := np.unique(starts[:, k])) > 1 and np.min(np.diff(u)) < patch_shape[k]
+                          for k in range(3))
+        if overlapping and self.blend == "assign" and self._mesh_active():
+            logger.warning("blend 'assign' with an overlapping grid on a sharded host AVERAGES overlapping patches "
+                           "(one rank write-wins). Use 'blend: gaussian' for well-defined overlap blending, or "
+                           "'shard: false' for exact reference write-wins stitching.")
 
     def __call__(self, test_loader):
         import h5py
@@ -526,18 +611,21 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         from pytorch3dunet_tpu_torch.inference_device import detect_device_path
 
         dataset = test_loader.dataset
+        if not self._participates():
+            return None
+        leader = distributed.local_rank() == 0
         if is_model_2d(self.model):
             patch_z = dataset.raw_slices[0][-3].stop - dataset.raw_slices[0][-3].start
             if patch_z != 1 or dataset.halo_shape[0] != 0:
                 logger.warning("2D model with patches deeper than 1 or a z halo: falling back to the host loop. "
                                "Set patch_shape [1, H, W] and halo_shape [0, hy, hx] to keep the device sweep.")
-                return super().__call__(test_loader)
+                return super().__call__(test_loader) if leader else None
         device_path = detect_device_path(dataset.transformer.phase_config["raw"], dataset.transformer.config_base)
         if device_path is None:
             logger.warning("Transformer pipeline unsupported by the device sweep: falling back to the host loop. "
                            "Supported test pipelines: Standardize / Normalize / PercentileNormalizer "
                            "(non-channelwise) + ToTensor.")
-            return super().__call__(test_loader)
+            return super().__call__(test_loader) if leader else None
         normalize, stats = device_path
 
         logger.info(f"Processing '{dataset.file_path}' with the device-side sweep...")
@@ -551,20 +639,24 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
             channels_first = raw_dset.ndim == 4
             spatial = raw_dset.shape[1:] if channels_first else raw_dset.shape
             cin = raw_dset.shape[0] if channels_first else 1
-            patch_shape, starts = self._plan_geometry(spatial, patch_shape, starts, dataset.halo_shape, cin)
+            patch_shape, starts, spatial_n = self._plan_geometry(spatial, patch_shape, starts, dataset.halo_shape,
+                                                                 cin, normalize)
+            self._warn_overlap(starts, patch_shape)
             n_voxels = int(np.prod([s + 2 * h for s, h in zip(spatial, dataset.halo_shape)])) * cin
             if self.max_device_voxels and n_voxels > self.max_device_voxels:
                 # bigger-than-budget volume: stream z-slabs straight from the
                 # file and the finalized planes straight into the output H5 —
                 # host memory stays O(slab), never O(volume)
                 return self._streamed_predict(dataset, raw_dset, spatial, starts, patch_shape, normalize, stats,
-                                              start)
+                                              start, spatial_n)
             raw = raw_dset[:]
 
         padded = mirror_pad(np.asarray(raw, dtype=np.float32), dataset.halo_shape)
-        sweep = self._get_sweep(patch_shape, dataset.halo_shape, normalize, stats)
+        sweep = self._get_sweep(patch_shape, dataset.halo_shape, normalize, stats, spatial_n)
         prediction_array = sweep(padded, starts, stats=stats)  # (Cout, D, H, W)
         logger.info(f"Finished device inference in {time.perf_counter() - start:.2f} seconds")
+        if not leader:
+            return None
 
         if self.performance_metric is not None or not self.write_behind:
             # the metric scores the saved (segmented) array: save inline
@@ -638,7 +730,9 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
                                             tuple(stride_shape))
         starts = np.array([[s.start for s in idx[-3:]] for idx in slices], dtype=np.int32)
         patch_shape = tuple(idx.stop - idx.start for idx in slices[0][-3:])
-        patch_shape, starts = self._plan_geometry(spatial, patch_shape, starts, halo_shape, cin)
+        patch_shape, starts, spatial_n = self._plan_geometry(spatial, patch_shape, starts, halo_shape, cin,
+                                                             normalize)
+        self._warn_overlap(starts, patch_shape)
 
         padded_voxels = int(np.prod([s + 2 * h for s, h in zip(spatial, halo_shape)])) * cin
         if self.max_device_voxels and padded_voxels > self.max_device_voxels:
@@ -649,18 +743,25 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
             def consume(z, planes):
                 out[:, z : z + planes.shape[1]] = planes
 
-            self._chunked_sweep(volume, starts, patch_shape, halo_shape, normalize, stats, consume)
+            self._chunked_sweep(volume, starts, patch_shape, halo_shape, normalize, stats, consume, spatial_n)
             return out
 
-        sweep = self._get_sweep(patch_shape, halo_shape, normalize, stats)
+        sweep = self._get_sweep(patch_shape, halo_shape, normalize, stats, spatial_n)
         return sweep(mirror_pad(volume, halo_shape), starts, stats=stats)
 
-    def _streamed_predict(self, dataset, raw_dset, spatial, starts, patch_shape, normalize, stats, t_start):
+    def _streamed_predict(self, dataset, raw_dset, spatial, starts, patch_shape, normalize, stats, t_start,
+                          spatial_n=0):
         """Z-slab streaming path for volumes over the device budget: input
         slabs are read from the open H5 dataset (never the whole volume), and
         finalized output planes are written straight into a chunked gzip H5
-        dataset. Peak host allocation is O(slab), not O(volume)."""
+        dataset. Peak host allocation is O(slab), not O(volume). The other
+        ranks of a sharded host sweep along and write nothing."""
         import h5py
+
+        if distributed.local_rank() != 0:
+            self._chunked_sweep(raw_dset, starts, patch_shape, dataset.halo_shape, normalize, stats,
+                                lambda z, planes: None, spatial_n)
+            return None
 
         output_file = _get_output_file(dataset, output_dir=self.output_dir)
         logger.info(f"Saving predictions to: {output_file} (streamed)")
@@ -681,13 +782,14 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
                         planes = planes[self.prediction_channel : self.prediction_channel + 1]
                     dset[:, z : z + planes.shape[1]] = planes
 
-            self._chunked_sweep(raw_dset, starts, patch_shape, dataset.halo_shape, normalize, stats, consume)
+            self._chunked_sweep(raw_dset, starts, patch_shape, dataset.halo_shape, normalize, stats, consume,
+                                spatial_n)
             logger.info(f"Finished device inference in {time.perf_counter() - t_start:.2f} seconds")
             if self.performance_metric is not None:
                 return self._evaluate(dset[...], dataset)
         return None
 
-    def _chunked_sweep(self, raw, starts, patch_shape, halo_shape, normalize, stats, consume):
+    def _chunked_sweep(self, raw, starts, patch_shape, halo_shape, normalize, stats, consume, spatial_n=0):
         """Sweeps the grid in z-slabs so only O(slab) data lives on the device
         (and on the host) at a time — the device-side LazyPredictor analog.
 
@@ -712,7 +814,8 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         reference's write-wins order because the patch grid is z-major
         ascending.
         """
-        weighted = self.blend == "gaussian"
+        sweep = self._get_sweep(patch_shape, halo_shape, normalize, stats, spatial_n)
+        weighted = sweep.weighted
         channels_first = raw.ndim == 4
         depth = int(raw.shape[1] if channels_first else raw.shape[0])
         hz = halo_shape[0]
@@ -721,8 +824,6 @@ class DeviceSlidingWindowPredictor(StandardPredictor):
         plane_voxels = int(np.prod([s + 2 * h for s, h in zip(raw.shape[-2:], halo_shape[1:])]))
         plane_voxels *= raw.shape[0] if channels_first else 1
         z_capacity = max(int(self.max_device_voxels // max(plane_voxels, 1)), pz)
-
-        sweep = self._get_sweep(patch_shape, halo_shape, normalize, stats)
 
         # group ascending z-levels into slabs bounded by the device budget
         z_levels = [int(z) for z in np.unique(starts[:, 0])]

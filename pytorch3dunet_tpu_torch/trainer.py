@@ -53,7 +53,23 @@ depth-1 patches: each batch loses its singleton z after the device
 augmentation and before the forward, and the host metric gets it back
 (JAX trainer.py:454-465, metrics.py `to_metric_layout`).
 
-Spatial sharding is not ported yet ("Parallelism") and is refused.
+With more than one rank (parallel/__init__.py; `train.py` initializes them
+from the P3DUNET_* variables):
+- data parallel (JAX `choose_data_mesh`): every rank trains on its own part of
+  its host's batch; the loss is computed on the logits and targets gathered
+  over the ranks (the global batch, as the JAX step over one global array
+  sees it), BatchNorm all-reduces its batch moments, and the gradients are
+  summed over the ranks (parallel/mesh.py);
+- `spatial_sharding: true` (JAX parallel/spatial.py): every rank reads the
+  same batch and trains on its D-slab of it, with halo-exchanged convs,
+  all-reduced GroupNorm and SE statistics and the loss on the gathered
+  logits; the space mesh spans every rank, and a world size the patch depth
+  cannot be sharded over raises (ROADMAP F11). Validation runs the same way.
+The parameters, buffers and optimizer state are broadcast from rank 0 at the
+start and after a resume (from rank 0's file), dropout draws differ per rank,
+only rank 0 writes checkpoints, and the other ranks suffix their TensorBoard
+run name with `_proc<rank>`. Under `model.remat` the recomputed levels enter
+the collectives again in backward, in the same order on every rank.
 """
 
 import contextlib
@@ -68,12 +84,19 @@ import numpy as np
 import torch
 
 from pytorch3dunet_tpu_torch.metrics import device_metric_fn, get_evaluation_metric
-from pytorch3dunet_tpu_torch.utils.misc import ITEM_PARALLELISM, RunningAverage, get_logger, not_ported
+from pytorch3dunet_tpu_torch.utils.misc import RunningAverage, get_logger
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
 from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d
 from pytorch3dunet_tpu_torch.ops.augment import DeviceAugmenter, split_device_transforms
+from pytorch3dunet_tpu_torch.parallel import distributed
+from pytorch3dunet_tpu_torch.parallel.mesh import (choose_data_mesh, data_axis, data_mesh, data_parallel_loss,
+                                                   gather, optimizer_state_tensors, replicate, step_fns, train_step)
+from pytorch3dunet_tpu_torch.parallel.spatial import (build_spatial_accum_fns, build_spatial_eval_step,
+                                                      build_spatial_train_step, choose_space_mesh,
+                                                      shard_spatial_batch, spatial_min_local, spatial_pool_d,
+                                                      validate_spatial_model)
 from pytorch3dunet_tpu_torch.utils.checkpoint import LAST_CHECKPOINT, load_checkpoint, save_checkpoint
 from pytorch3dunet_tpu_torch.utils.optim import create_lr_scheduler, create_optimizer, is_plateau
 from pytorch3dunet_tpu_torch.utils.tb import TensorboardFormatter, open_writer
@@ -90,16 +113,18 @@ def create_trainer(config: dict, loaders: dict | None = None) -> "UNetTrainer":
 
     With `manual_seed`, torch's global RNG is seeded before the model is built
     (its weight init) and an explicit generator seeded from it draws the
-    train loader's shuffle seed, then the device augmentation's seed."""
+    train loader's shuffle seed, then the device augmentation's seed. With
+    more than one rank, rank 0's draw seeds every rank's generator, so the
+    ranks of a host shuffle alike and take their parts of one batch order."""
     seed = config.get("manual_seed", None)
     generator = torch.Generator()
     if seed is not None:
         torch.manual_seed(seed)
         generator.manual_seed(seed)
     else:
-        generator.seed()
+        generator.manual_seed(distributed.broadcast_object(int(generator.seed())))
 
-    device = resolve_device(config.get("device", None))
+    device = distributed.device_for_rank(resolve_device(config.get("device", None)))
     logger.info(f"Using device: {device}")
     model = get_model(config["model"]).to(device)
 
@@ -154,8 +179,6 @@ class UNetTrainer:
                  max_val_images=100, device=None, profile_dir=None, log_params=False, spatial_sharding=False,
                  async_steps=8, grad_accum_steps=1, ema_decay=None, async_checkpoint=True, device_augmenter=None,
                  augment_seed=None):
-        if spatial_sharding:
-            raise not_ported("trainer.spatial_sharding", ITEM_PARALLELISM)
         if ema_decay is not None and not 0.0 < float(ema_decay) < 1.0:
             raise ValueError(f"trainer.ema_decay must be in (0, 1); got {ema_decay}")
         logger.info(f"trainer.async_steps={async_steps}: timing only; the port reads every step's loss")
@@ -184,6 +207,19 @@ class UNetTrainer:
         self.profile_dir = profile_dir
         self.log_params = bool(log_params)
         self.device_augmenter = device_augmenter
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        self.spatial_sharding = bool(spatial_sharding)
+        # the data mesh, or (under spatial_sharding) the space mesh, chosen
+        # from the first batch; None on one rank without sharding
+        self.mesh = None
+        if self.spatial_sharding:
+            if is_model_2d(model):
+                raise ValueError("spatial_sharding requires a 3D model")
+            validate_spatial_model(model)
+        # the step functions, built once the mesh is known (JAX
+        # `_build_train_step`, `_build_accum_fns`, `_build_eval_step`)
+        self._train_fns = None
+        self._eval_step = None
         self.device_metric = device_metric_fn(eval_criterion)
         where = "on the device (2 scalars per batch read after the loop)" if self.device_metric else \
             "on the host (each batch's probabilities are downloaded)"
@@ -191,11 +227,14 @@ class UNetTrainer:
         if device_augmenter is not None:
             # (host generator of the scalar draws, device generator of the fields)
             self.augment_generators = (torch.Generator(), torch.Generator(device=self.device))
+            # data-parallel ranks augment their own samples with their own
+            # draws; spatial ranks augment one batch alike
+            offset = 0 if self.spatial_sharding else 2 * self.rank
             for i, gen in enumerate(self.augment_generators):
                 if augment_seed is None:
                     gen.seed()
                 else:
-                    gen.manual_seed(augment_seed + i)
+                    gen.manual_seed(augment_seed + offset + i)
         self._profiler = None
         self._ckpt_executor = None
         self._ckpt_future = None
@@ -205,7 +244,11 @@ class UNetTrainer:
         self.best_eval_score = float("-inf") if eval_score_higher_is_better else float("+inf")
 
         # the TensorBoard run directory, which copy_config writes the config into
-        run_dir = os.path.join(checkpoint_dir, "logs", datetime.now().strftime("%Y-%m-%d_%H-%M-%S"))
+        run_name = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        if self.rank != 0:
+            # each rank its own run directory; only rank 0 writes checkpoints
+            run_name = f"{run_name}_proc{self.rank}"
+        run_dir = os.path.join(checkpoint_dir, "logs", run_name)
         os.makedirs(run_dir, exist_ok=True)
         self.writer = open_writer(run_dir)
 
@@ -235,9 +278,21 @@ class UNetTrainer:
                     e.copy_(state["ema_state_dict"][name])
         if state.get("torch_rng_state") is not None:
             self._restore_rng(state["torch_rng_state"])
+        if self.world > 1:
+            self._replicate_state()
 
         n_params = sum(p.numel() for p in self.model.parameters() if p.requires_grad)
         logger.info(f"Number of learnable params {n_params}")
+
+    def _replicate_state(self):
+        """Rank 0's parameters, buffers, optimizer state and EMA on every rank
+        (JAX `replicate`), and dropout draws that differ per rank: every rank
+        seeds from the same draw plus its rank (JAX folds the shard index into
+        the step's key)."""
+        everyone = data_mesh()
+        replicate(everyone, self.model)
+        replicate(everyone, optimizer_state_tensors(self.optimizer) + (self.ema or []))
+        torch.manual_seed(int(torch.randint(0, 2**62, ())) + 7919 * self.rank)
 
     def _load_resume(self, path) -> dict:
         """Restores the model, the optimizer and the counters of a port
@@ -317,7 +372,65 @@ class UNetTrainer:
             if inp.shape[2] != 1:
                 raise ValueError(f"a 2D model trains on patches of depth 1, got a batch of shape {tuple(inp.shape)}")
             inp, target = inp[:, :, 0], target[:, :, 0] if has_channel else target[:, 0]
+        if self.spatial_sharding:
+            # this rank's D-slab of the batch every rank read alike
+            if self.mesh is None:
+                self.mesh = choose_space_mesh(inp.shape[2], len(self.model.encoders),
+                                              min_local=spatial_min_local(self.model),
+                                              pool=spatial_pool_d(self.model))
+                logger.info(f"Spatial mesh: patch D axis sharded over {self.mesh.size} rank(s)")
+            inp, target = shard_spatial_batch(self.mesh, (inp, target))
+        elif self.mesh is None and self.world > 1:
+            # each rank holds an equal part of the global batch (the loaders' shard)
+            self.mesh = choose_data_mesh(self.world * inp.shape[0])
+            logger.info(f"Data-parallel mesh: {self.mesh.size} ranks")
         return inp, target
+
+    def _build_accum_fns(self):
+        """(grads_step, apply_step, zeros) of an update of `grad_accum_steps`
+        microbatches (parallel/mesh.py `step_fns`): the D-sharded ones of
+        parallel/spatial.py, or the loss on the logits, over a data mesh on
+        the logits and targets gathered over it with the gradients summed."""
+        model, criterion, k = self.model, self.loss_criterion, self.grad_accum_steps
+        if self.spatial_sharding:
+            return build_spatial_accum_fns(model, criterion, self.optimizer, self.mesh, k)
+        if self.mesh is None:
+            def loss_fn(inp, target):
+                probs, logits = model(inp)
+                return criterion(logits, target), probs
+
+            return step_fns(model.parameters(), self.optimizer, loss_fn, contextlib.nullcontext, (), k)
+        mesh = self.mesh
+        return step_fns(model.parameters(), self.optimizer,
+                        lambda inp, target: data_parallel_loss(model, criterion, mesh, inp, target),
+                        lambda: data_axis(mesh), ((mesh, False),), k)
+
+    def _build_train_step(self):
+        """`step(inp, target) -> (loss, probs)`: one update from one batch."""
+        if self.spatial_sharding:
+            return build_spatial_train_step(self.model, self.loss_criterion, self.optimizer, self.mesh)
+        return train_step(*self._build_accum_fns())
+
+    def _build_eval_step(self):
+        """`step(inp, target) -> (probs, loss)` of validation: the D-sharded
+        one, or the model and the loss on this rank's batch (validation
+        batches are whole on every data-parallel rank, so they gather nothing)."""
+        if self.spatial_sharding:
+            return build_spatial_eval_step(self.model, self.loss_criterion, self.mesh)
+
+        def step(inp, target):
+            probs, logits = self.model(inp)
+            return probs, self.loss_criterion(logits, target)
+
+        return step
+
+    def _full(self, t):
+        """A D-slab gathered whole over the space mesh (logging and host
+        metrics read whole volumes); any other tensor as it is."""
+        if not self.spatial_sharding:
+            return t
+        with torch.no_grad():
+            return gather(t, self.mesh, t.ndim - 3)
 
     def _metric_layout(self, probs, target):
         """(probabilities, target) as the host metrics take them: NCDHW numpy,
@@ -390,20 +503,28 @@ class UNetTrainer:
             yield group
 
     def _update(self, group, train_losses):
-        """One optimizer update from the group's microbatches: their gradients
-        summed by backward, divided by k (JAX `_accumulation_round`), then the
-        optimizer's step. Returns the last microbatch's (raw, target) as the
-        loader gave them and (input, target, probabilities) on the device."""
-        self.optimizer.zero_grad(set_to_none=True)
-        for raw, target_host in group:
+        """One optimizer update from the group's microbatches: the train step
+        for one, else their gradients summed by backward, divided by k (JAX
+        `_accumulation_round`), then the optimizer's step. Returns the last
+        microbatch's (raw, target) as the loader gave them and (input, target,
+        probabilities) on the device (this rank's D-slabs under spatial
+        sharding)."""
+        single = self.grad_accum_steps == 1
+        for i, (raw, target_host) in enumerate(group):
             inp, target = self._prepare_batch(raw, target_host, augment=True)
-            probs, logits = self.model(inp)
-            loss = self.loss_criterion(logits, target)
-            loss.backward()
+            if self._train_fns is None:
+                # the first batch chose the mesh
+                self._train_fns = self._build_train_step() if single else self._build_accum_fns()
+            if single:
+                loss, probs = self._train_fns(inp, target)
+            else:
+                grads_step, apply_step, zeros = self._train_fns
+                if i == 0:
+                    zeros()
+                loss, probs = grads_step(inp, target)
             train_losses.update(loss.item(), inp.shape[0])
-        if len(group) > 1:
-            torch._foreach_div_([p.grad for p in self.model.parameters() if p.grad is not None], len(group))
-        self.optimizer.step()
+        if not single:
+            apply_step()
         return raw, target_host, inp, target, probs
 
     @torch.no_grad()
@@ -431,7 +552,8 @@ class UNetTrainer:
 
     def _log_train(self, train_losses, train_eval_scores, batch_size, raw, target_host, inp, target, probs):
         """The log iteration's stats, scalars, images and histograms, from the
-        last microbatch."""
+        last microbatch (gathered whole from the D-slabs under spatial sharding)."""
+        inp, target, probs = self._full(inp), self._full(target), self._full(probs)
         out_np = None
         if not self.skip_train_validation or self.writer is not None:
             out_np, tar_np = self._metric_layout(probs, target)
@@ -494,8 +616,10 @@ class UNetTrainer:
             with torch.no_grad(), self._eval_weights():
                 for i, (raw, target_host) in enumerate(self.loaders["val"]):
                     inp, target = self._prepare_batch(raw, target_host)
-                    probs, logits = self.model(inp)
-                    loss = self.loss_criterion(logits, target)
+                    if self._eval_step is None:
+                        self._eval_step = self._build_eval_step()
+                    probs, loss = self._eval_step(inp, target)
+                    inp, target, probs = self._full(inp), self._full(target), self._full(probs)
                     if self.device_metric is not None and i not in indices:
                         score = self.device_metric(probs, target)
                     else:
@@ -556,6 +680,9 @@ class UNetTrainer:
             future.result()
 
     def _save_checkpoint(self, is_best: bool):
+        if self.rank != 0:
+            # the replicas are identical: one writer (and no two writes of one file)
+            return
         # one save at a time: a new one first waits for the last (which also
         # orders the last/best file writes)
         self._wait_checkpoint()

@@ -70,20 +70,3 @@ def get_class(class_name: str, modules: list[str]) -> type:
     if found is None:
         raise RuntimeError(f"Unsupported class: {class_name}")
     return found
-
-
-# The ROADMAP.md Queue 1 items that the port's refusals name, by title: a
-# re-anchor renumbers the queue but keeps the titles
-# (tests/test_torch_port_host.py holds each to a live item of ROADMAP.md).
-ITEM_PARALLELISM = "Parallelism"
-
-
-def roadmap(item: str) -> str:
-    """The reference to a ROADMAP Queue 1 item that a refusal names."""
-    return f'ROADMAP Queue 1, "{item}"'
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a class or option of the JAX package that the port does
-    not run yet, naming the ROADMAP item that ports it."""
-    return NotImplementedError(f"{what} is not ported to PyTorch yet ({roadmap(item)})")

@@ -211,8 +211,17 @@ def test_sweep_loop_makes_no_host_sync(models, monkeypatch):
 
 
 def test_mesh_is_refused_naming_the_roadmap_item(models):
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        DeviceSlidingWindow(models[2], (8, 16, 16), HALO, mesh=object())
+    # "Parallelism" is ported: a mesh is accepted, and one of a single rank
+    # sweeps as no mesh does (tests/test_torch_port_parallel.py holds 2 ranks)
+    from pytorch3dunet_tpu_torch.parallel.mesh import Mesh
+
+    volume = np.pad(_volume((12, 40, 36)), [(h, h) for h in HALO], mode="reflect")
+    starts = np.array([(0, 0, 0), (4, 16, 16), (4, 24, 20)], np.int32)
+    plain = DeviceSlidingWindow(models[2], (8, 16, 16), HALO, blend="gaussian")
+    one_rank = DeviceSlidingWindow(models[2], (8, 16, 16), HALO, blend="gaussian", mesh=Mesh((0,)),
+                                   spatial_mesh=None)
+    assert one_rank.mesh is None
+    np.testing.assert_array_equal(one_rank(volume, starts), plain(volume, starts))
 
 
 # --- the H5 path: write-behind, fallback, CLI routing ----------------------------------------------------------

@@ -244,9 +244,16 @@ def test_adam_is_the_default_with_l2_weight_decay():
 
 @pytest.mark.parametrize("option,value,item", [("spatial_sharding", True, "Parallelism")])
 def test_unported_trainer_options_raise(tmp_path, option, value, item):
+    # "Parallelism" is ported: no refusal names it, the option builds a
+    # trainer, and what the option cannot shard still raises
+    from pytorch3dunet_tpu_torch.utils import misc
+
+    assert item not in vars(misc).values()
     config = _config(tmp_path, {"learning_rate": 1e-3}, **{option: value})
-    with pytest.raises(NotImplementedError, match=item):
-        create_trainer(config, loaders={"train": [], "val": []})
+    assert create_trainer(config, loaders={"train": [], "val": []}).spatial_sharding
+    batch_norm = dict(config, model=dict(config["model"], layer_order="bcr"))
+    with pytest.raises(ValueError, match="BatchNorm"):
+        create_trainer(batch_norm, loaders={"train": [], "val": []})
 
 
 def test_checkpoint_is_atomic_and_refuses_jax_npz(tmp_path):
