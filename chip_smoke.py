@@ -69,14 +69,14 @@ one upload, the patch loop, normalization and stitching on the card, one
 download) on phase 4's volume:
  15. UNet3D, f32: (a) the geometry of
      resources/3DUnet_confocal_boundary_tpu/test_config.yml (gaussian blend,
-     stride 40x85x85: 9 patches, 126 K2 launches) against the same sweep with
+     stride 40x85x85: 9 patches, 144 K2 launches) against the same sweep with
      the plain conv; (b) assign on phase 4's grid against phase 4's host
      predict_array; (c) (a) streamed in z-slabs against (a); (d) `patch_mode:
      slab` (2 slabs of 145 planes); (e) one forward of a slab whose decoder
      concat passes 2^31 elements, against the plain conv in depth chunks; wall
      times and Mvoxel/s beside phase 5's host predict_array, peak memory, and
      the device's busy share over a sweep of (a) (torch.profiler);
- 16. the sweep of 15(a) with `model.dtype: bfloat16` (126 bf16 K2 launches)
+ 16. the sweep of 15(a) with `model.dtype: bfloat16` (144 bf16 K2 launches)
      against the same bf16 sweep with the plain conv and against 15(a);
  17. ResidualUNet3D in bfloat16 under P3DUNET_TAPFOLD=1, the geometry of
      resources/3DUnet_lightsheet_boundary_tpu/test_config.yml (assign, phase 4's
@@ -93,11 +93,11 @@ raw; StandardLabelToBoundary on the device):
      voxels that differ); each transform's time, the whole augmenter at the
      config's probabilities (median of 5) and its peak memory;
  19. UNet3D in bf16, the confocal `_tpu` train config at full width: (a) one
-     bf16 step's grads (14 bf16 K2, 14 bf16 K3) against the same step with
+     bf16 step's grads (16 bf16 K2, 16 bf16 K3) against the same step with
      the plain conv, and their distance from a float64 step; (b) 6 Adam steps
      on the batch: the loss falls, parameters and moments stay float32; (c)
      `create_trainer(config, loaders=...)` with the device augmentation, 6
-     steps and 1 validation: 14 bf16 K2 a forward, 14 bf16 K3 a step, no f32
+     steps and 1 validation: 16 bf16 K2 a forward, 16 bf16 K3 a step, no f32
      K2 or K3, finite losses, a checkpoint that loads into an f32 model; the
      bf16 step against phase 8's f32 step, the augmented step and the
      augmenter's share, the profile and cuDNN's bf16 weight gradient;
@@ -110,7 +110,7 @@ dicts: MULTICLASS_TPU, DENOISING_TPU):
      f_maps 32 over 4 levels, 3 classes, bf16) on a standardized raw and an
      int64 class map of 3 classes from phase 7's Voronoi cells, through the
      config's device augmentation (flips, rot90, rotate, elastic order 3/0):
-     (a) one bf16 step's grads against the plain conv's (14 bf16 K2, 14 bf16
+     (a) one bf16 step's grads against the plain conv's (16 bf16 K2, 16 bf16
      K3), CrossEntropyLoss against float64 on the same logits; (b)
      `create_trainer` with 4 augmented steps and 1 validation: launches, the
      MeanIoU device twin against the host MeanIoU on the validation's
@@ -119,17 +119,17 @@ dicts: MULTICLASS_TPU, DENOISING_TPU):
      metric;
  22. resources/3DUnet_denoising_tpu/train_config_regression.yaml (UNet3D
      f_maps 16 over 5 levels, bf16, 128^3): K2 against its plain version at
-     its 18 forward shapes and K3 at its 18 input-gradient shapes in f32 and
+     its 22 forward shapes and K3 at its 22 input-gradient shapes in f32 and
      bf16 (F = 8, dy with 8 channels and 256 channels at 8^3 are new), then
      one bf16 step's grads against the plain conv's and 4 augmented steps
      (flips and rot90; its RandomRotate stays on the host) and 1 validation
-     with the PSNR twin through `create_trainer` (18 bf16 K2 a forward, 18
+     with the PSNR twin through `create_trainer` (22 bf16 K2 a forward, 22
      bf16 K3 a step); the step time, peak memory and profile;
  23. resources/3DUnet_multiclass/test_config.yaml in f32 with phase 21's
      weights: the device sweep on phase 4's volume and grid (each patch
      standardized), its segmentation against the argmax of its
      probabilities, `predictor.evaluate` (mean IoU) against a numpy mean IoU
-     computed here on a class map of the volume, 56 f32 K2, the evaluation's
+     computed here on a class map of the volume, 64 f32 K2, the evaluation's
      time beside the sweep's.
 Phases 24-27 drive the 2D families and the remaining model options (configs
 mirrored as dicts: MODEL_2D, DSB_MODEL, DSB_SECTIONS, OPTIONS_3D); no 2D path
@@ -155,16 +155,17 @@ phases 24-26 assert 0 launches of K1, K2 and K3:
      forward beyond 64 pixels of the pad, the segmentation against scipy's
      8-connected components of probs > 0.5;
  27. the 3D options on the confocal UNet3D on phase 7's batch: upsample
-     trilinear, deconv (DoubleConv, concat) and conv_upscale 1, each forward 14
-     K2 against the plain conv; conv_kernel_size [1, 3, 3] with conv_padding
+     trilinear, deconv (DoubleConv, concat) and conv_upscale 1, each forward on
+     the kernels (14 K2; 16 for conv_upscale 1, whose decoders 0 and 2 fuse)
+     against the plain conv; conv_kernel_size [1, 3, 3] with conv_padding
      [0, 1, 1] 0 K2 (cuDNN); one f32 trilinear step, 14 K2 + 14 K3, held as
      phase 13's to a float64 step (the plain f32 step itself is 4.6e-3 of
      max|g| off it at a level-2 conv);
  28. the trainer's breadth on the confocal UNet3D and phase 7's batches:
-     (a) `model.remat`: one f32 step's grads against the step without it (28
-     K2: each forward and its recompute, 14 K3), step time and peak memory with
+     (a) `model.remat`: one f32 step's grads against the step without it (32
+     K2: each forward and its recompute, 16 K3), step time and peak memory with
      and without, f32 and bf16; (b) `grad_accum_steps: 2` over two batch-1
-     batches against one batch-2 step (28 K2 and 28 K3 an update): the mean
+     batches against one batch-2 step (32 K2 and 32 K3 an update): the mean
      grads and the updated parameters; (c) the confocal `_tpu` train config with
      its commented lines on (`ema_decay: 0.999`, `grad_accum_steps: 2`,
      `resume: auto`), bf16 with its device augmentation: 4 updates and a
@@ -176,10 +177,10 @@ phases 24-26 assert 0 launches of K1, K2 and K3:
  29. conversion, export and serving of the confocal UNet3D at full width
      (seeded random weights): (a) `torch.library.opcheck` of the conv's custom
      op `pytorch3dunet_tpu_torch::conv3d_fwd` on CUDA for each variant and
-     dtype, one eager forward through it (14 K2) against the plain conv; (b)
+     dtype, one eager forward through it (17 K2) against the plain conv; (b)
      the serving forward with `standardize` inside exported on the card
      (`export.py`, f32 and bf16, patch 112x240x240, symbolic batch), called at
-     batch 1 and 2: 14 K2 a forward inside the artifact, within 1e-6 of the
+     batch 1 and 2: 17 K2 a forward inside the artifact, within 1e-6 of the
      eager model; the export's seconds, the artifact's MB, its forward
      against the eager forward; (c) the weights written as a JAX npz, read
      back, converted to torch and back (`convert.py`), bitwise; (d)
@@ -204,16 +205,49 @@ sweeps' sharded paths) on the one card:
      plain-conv step (phase 19's); (b) two ranks as two processes sharing the
      card over gloo, which takes CUDA tensors for all_reduce and broadcast
      (NCCL refuses two ranks on one device): the D-sharded f32 step at local
-     D 40 and one data-parallel step of 2 x 1 patches against the batch-2 step,
-     14 K2 + 14 K3 a rank, each held by (a)'s gate, the ranks' updated
-     parameters identical; (c) phase 4's grid sweep split over the 2 ranks
-     (2 patches, 28 K2 a rank) against one rank's, within 1e-5, and two slabs
+     D 40 (14 K2 + 14 K3 a rank) and one data-parallel step of 2 x 1 patches
+     against the batch-2 step (16 K2 + 16 K3 a rank), each held by (a)'s gate,
+     the ranks' updated parameters identical; (c) phase 4's grid sweep split
+     over the 2 ranks (2 patches, 32 K2 a rank) against one rank's, within
+     1e-5, and two slabs
      of 80 planes z-sharded over them against one rank's slab, within 1e-4 and
      either within 2e-5 or no further from a float64 forward than twice one
      rank's distance plus 2e-5; (d) the sharded step's time at world size 1
      against the unsharded one (the halo path and its 2 extra planes), each
      rank's step, its all-reduces, the sweeps. Two ranks sharing one card say
      nothing of scaling.
+Phase 31 drives the JAX package's default decoder paths at full width against
+the generic ones, each switch set for the call and restored after:
+ 31. (a) the confocal UNet3D forward at 112x234x234 with the fused decoder
+     (P3DUNET_FUSED_DECODER=1: decoders 0 and 2 fuse, decoder 1 stays generic,
+     117 != 2 x 58) against P3DUNET_FUSED_DECODER=0, f32 and bf16: both
+     within 1e-3 (bf16: phase 16's ceilings) of the generic forward on the
+     plain conv, 16 against 14 K2, times in turns, a profile of each; (b) the
+     f32 step at 80x170x170 on each path, timed in turns; then from the
+     weights those steps left, GroupNorm affines drawn anew, one step's grads
+     on the fused path (16 K2 + 16 K3) held by phase 13's gate to a float64
+     plain step, beside the generic path's; (c) the same for the light-sheet
+     ResidualUNet3D under P3DUNET_TAPFOLD=1 with the phase deconv
+     (P3DUNET_DECONV=phase: each deconv one K2 conv, F = 8 Co, pinned to K2;
+     14 K1 + 8 K2 a forward, 22 K3 a step) against cuDNN's transposed conv
+     (P3DUNET_DECONV=xla); (d) K2 and K3 against their plain versions, f32 and
+     bf16, at the 16 conv shapes those paths add (C = F = 128 and 32 skip
+     branches, wide up-branches with F = 1024 and 256, deconvs with F = 2048
+     and 512; their input gradients with 1024 and 2048 channels in), each
+     timed beside its 3xTF32 bound and one cuDNN call of the same function
+     (F.conv3d of the embedded kernel; F.conv_transpose3d for a deconv, which
+     K2 + its depth-to-space is also held to); (e) the DSB2018 UNet2D (bcr,
+     fused at every level) train-mode forward at batch 32 of 256x256, fused
+     against generic within 1e-4, running statistics included, no hand
+     kernel; then the rule of each default: the new path is the port's
+     default if no reading of it is slower than the generic one's by more
+     than 2%.
+Every launch gate of phases 4-31 is derived, not written down: `plan_launches`
+counts the kernel convs of `kernel_conv_plan` (models/unet.py) for the model,
+its input shape and the switches as they are set (the fused decoders' two
+convs, a phase deconv's one, P3DUNET_TAPFOLD's K1, the generic decoders under
+a space mesh); the counts above are the defaults' (fused decoder on, the
+phase deconv off).
 TF32 is off for every comparison and every "plain" time unless a line says
 "TF32". The line before the last is a JSON object describing the kernels (time,
 launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
@@ -228,6 +262,7 @@ call in bf16, for K2 the MMAs issued over the useful ones); the last line is
 Needs torch, numpy and scipy; not jax, h5py or yaml, and nothing of the JAX package.
 """
 
+import collections
 import copy
 import json
 import math
@@ -513,29 +548,42 @@ def conv_inputs(shape, c_out, dtype, bias, gen, device):
 
 
 def path_conv_shapes(model, patch_in):
-    """(module name, NDHWC input shape, F) of every 3x3x3 conv of one forward
-    of `model` on a patch of spatial shape `patch_in`."""
-    from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d
+    """(name, NDHWC input shape, F) of every conv that one forward of `model`
+    on a patch of spatial shape `patch_in` runs on the kernels, as the
+    switches are set now (`kernel_conv_plan`: the fused decoders' two
+    branches, the phase deconvs' wide convs)."""
+    from pytorch3dunet_tpu_torch.models.unet import kernel_conv_plan
 
-    levels = len(model.encoders)
-    shapes = []
-    for name, module in model.named_modules():
-        if isinstance(module, Conv3d) and module.kernel_size == (3, 3, 3):
-            part, index = name.split(".")[:2]
-            level = int(index) if part == "encoders" else levels - 2 - int(index)
-            spatial = tuple(s // 2**level for s in patch_in)
-            shapes.append((name, (1, *spatial, module.in_channels), module.out_channels))
-    return shapes
+    return [(name, shape, f) for name, shape, f, _, _ in kernel_conv_plan(model, patch_in)]
 
 
-def dgrad_shapes(model, patch, layer_order=MODEL["layer_order"]):
-    """(module name, NDHWC dy shape, C) of every input gradient that one train
-    step on `patch` computes: every 3x3x3 conv but one that reads the raw patch
+def dgrad_shapes(model, patch):
+    """(name, NDHWC dy shape, C) of every input gradient that one train step
+    on `patch` computes: every kernel conv but one that reads the raw patch
     itself. With layer_order 'gcr' there is none such: the first conv reads the
     output of a GroupNorm whose affine parameters need its input gradient."""
-    first_reads_raw = layer_order[0] == "c"
-    return [(name, (*shape[:4], f), shape[4]) for i, (name, shape, f) in enumerate(path_conv_shapes(model, patch))
-            if not (i == 0 and first_reads_raw)]
+    from pytorch3dunet_tpu_torch.models.unet import kernel_conv_plan
+
+    return [(name, (*shape[:4], f), shape[4]) for name, shape, f, _, grad in kernel_conv_plan(model, patch) if grad]
+
+
+# the K2 and K1 launches of one forward and the K3 launches of one train step's backward
+Launches = collections.namedtuple("Launches", "k2 k3 k1")
+
+
+def plan_launches(model, patch_in, space_mesh=False):
+    """`Launches` of `model` (or a model config) on a patch of spatial shape
+    `patch_in`, derived from `kernel_conv_plan` under the switches as they are
+    set now (the Decoder's fused choice, P3DUNET_DECONV, P3DUNET_TAPFOLD), the
+    generic decoders under a space mesh. Every launch gate of phases 4-31
+    reads it, so a change of default changes the gates with it."""
+    from pytorch3dunet_tpu_torch.models.unet import get_model, kernel_conv_plan
+
+    if isinstance(model, dict):
+        model = get_model(dict(model))
+    plan = kernel_conv_plan(model, patch_in, space_mesh)
+    return Launches(sum(v == "roll" for *_, v, _ in plan), sum(grad for *_, grad in plan),
+                    sum(v == "im2col" for *_, v, _ in plan))
 
 
 def randomize_group_norms(model, gen):
@@ -668,18 +716,27 @@ def residual_unet_phases(device, gen, volume, batches):
     from pytorch3dunet_tpu_torch.predictor import StandardPredictor
     from pytorch3dunet_tpu_torch.trainer import create_trainer
 
+    from pytorch3dunet_tpu_torch.models.unet import kernel_conv_plan
+
     patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
     torch.manual_seed(SEED)
     model = get_model(RES_MODEL)
-    shapes = path_conv_shapes(model, patch_in)
-    k1_shapes = [(name, shape, f) for name, shape, f in shapes if f >= 64]
-    k2_shapes = [(name, shape, f) for name, shape, f in shapes if f < 64]
-    train_shapes = path_conv_shapes(model, TRAIN_PATCH)
-    train_k1 = [(name, shape, f) for name, shape, f in train_shapes if f >= 64]
-    train_k2 = [(name, shape, f) for name, shape, f in train_shapes if f < 64]
-    dgrads = dgrad_shapes(model, TRAIN_PATCH, RES_MODEL["layer_order"])
-    check((len(shapes), len(k1_shapes), len(dgrads)) == (18, 14, 18),
-          f"ResidualUNet3D has {len(shapes)} convs, {len(k1_shapes)} K1, {len(dgrads)} input gradients")
+    # the K1 and K2 convs of phases 11-14, under P3DUNET_TAPFOLD=1 (the phase
+    # deconvs' wide convs stay on K2)
+    os.environ["P3DUNET_TAPFOLD"] = "1"
+    try:
+        plans = {patch: kernel_conv_plan(model, patch) for patch in (patch_in, TRAIN_PATCH)}
+        per_patch = plan_launches(model, patch_in)
+        per_step = plan_launches(model, TRAIN_PATCH)
+    finally:
+        os.environ.pop("P3DUNET_TAPFOLD", None)
+    k1_shapes, k2_shapes = ([(name, shape, f) for name, shape, f, v, _ in plans[patch_in] if v == variant]
+                            for variant in ("im2col", "roll"))
+    train_k1, train_k2 = ([(name, shape, f) for name, shape, f, v, _ in plans[TRAIN_PATCH] if v == variant]
+                          for variant in ("im2col", "roll"))
+    dgrads = dgrad_shapes(model, TRAIN_PATCH)
+    log(f"[10 resunet] under P3DUNET_TAPFOLD=1 a {patch_in} forward runs {per_patch.k1} K1 + {per_patch.k2} K2, "
+        f"a {TRAIN_PATCH} step {per_step.k1} K1 + {per_step.k2} K2 + {per_step.k3} K3 (kernel_conv_plan)")
 
     # 10. the kernels against their plain versions at this model's shapes
     edges = [(f"edge{i}", case[:5], case[5], case[6]) for i, case in enumerate(EDGE_CASES)]
@@ -708,7 +765,7 @@ def residual_unet_phases(device, gen, volume, batches):
         model = model.to(device).eval()
         predictor = StandardPredictor(model, None, RES_MODEL["out_channels"], device)
         patches = list(predictor.patches(volume, PATCH, STRIDE, HALO, TRANSFORMER))
-        per_forward = {"conv3d_fwd": len(k2_shapes), "conv3d_packw": 0, "conv3d_im2col": len(k1_shapes)}
+        per_forward = {"conv3d_fwd": per_patch.k2, "conv3d_packw": 0, "conv3d_im2col": per_patch.k1}
         reset_launches()
         start = time.perf_counter()
         out = predictor.predict_array(volume, PATCH, STRIDE, HALO, TRANSFORMER)
@@ -784,9 +841,9 @@ def residual_unet_phases(device, gen, volume, batches):
             train_launches = dict(conv3d.launches)
             trainer.loss_criterion = criterion
         n_val = RES_TRAIN_STEPS // RES_VALIDATE_AFTER
-        expected = {"conv3d_fwd": len(k2_shapes) * (RES_TRAIN_STEPS + n_val),
-                    "conv3d_im2col": len(k1_shapes) * (RES_TRAIN_STEPS + n_val),
-                    "conv3d_packw": len(shapes) * RES_TRAIN_STEPS}
+        expected = {"conv3d_fwd": per_step.k2 * (RES_TRAIN_STEPS + n_val),
+                    "conv3d_im2col": per_step.k1 * (RES_TRAIN_STEPS + n_val),
+                    "conv3d_packw": per_step.k3 * RES_TRAIN_STEPS}
         log(f"[13 resunet train] fit: {RES_TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validation in {fit_s:.2f} s; "
             f"launches {train_launches} (expected {expected}); losses {', '.join(f'{v:.5f}' for v in losses)}; "
             f"best val ARand {trainer.best_eval_score:.5f}")
@@ -980,9 +1037,9 @@ def device_sweep_phases(device, volume, host, res_host_out):
 
     # 15. UNet3D in f32
     model = seeded(MODEL)
-    n_conv = len(path_conv_shapes(model, patch_in))
+    n_conv = plan_launches(model, patch_in).k2
     n_a, n_b = grid(TPU_STRIDE), grid(STRIDE)
-    check((n_conv, n_a, n_b) == (14, 9, 4), f"{n_conv} convs, {n_a} and {n_b} patches")
+    check((n_a, n_b) == (9, 4), f"{n_a} and {n_b} patches")
     sweep_a = sweep(model, TPU_STRIDE, TPU_BLEND)
     out_a = counted("device_sweep", sweep_a)
     expect("device_sweep", k2=(n_conv * n_a, 0))
@@ -1021,7 +1078,7 @@ def device_sweep_phases(device, volume, host, res_host_out):
     check((slab_patch, len(slab_starts)) == ((145, 170, 340), 2), f"slab plan {slab_patch} x {len(slab_starts)}")
     sweep_d = sweep(model, TPU_STRIDE, TPU_BLEND, patch_mode="slab")
     out_d = counted("device_sweep_slab", sweep_d)
-    expect("device_sweep_slab", k2=(n_conv * len(slab_starts), 0))
+    expect("device_sweep_slab", k2=(plan_launches(model, slab_in).k2 * len(slab_starts), 0))
     probs_ok("15(d)", out_d)
     del out_d
 
@@ -1112,9 +1169,7 @@ def device_sweep_phases(device, volume, host, res_host_out):
     os.environ["P3DUNET_TAPFOLD"] = "1"
     try:
         res32 = seeded(RES_MODEL)
-        k1 = sum(f >= 64 for _, _, f in path_conv_shapes(res32, patch_in))
-        k2 = len(path_conv_shapes(res32, patch_in)) - k1
-        check((k1, k2) == (14, 4), f"ResidualUNet3D: {k1} K1 and {k2} K2 convs")
+        k2, _, k1 = plan_launches(res32, patch_in)
         out32 = counted("resunet_device_sweep", sweep(res32, STRIDE, "assign"))
         expect("resunet_device_sweep", k2=(k2 * n_b, 0), k1=(k1 * n_b, 0))
         err_host = np.abs(out32 - res_host_out).max()
@@ -1357,10 +1412,10 @@ def bf16_train_phases(device, batches, f32_step_ms):
     # 19. UNet3D, the confocal _tpu train config
     config = {"manual_seed": SEED, "device": "cuda", "model": {**MODEL, "dtype": "bfloat16"}, **TRAIN_SECTIONS,
               "loaders": copy.deepcopy(TPU_LOADERS)}
-    n_conv = 14
+    n = plan_launches(config["model"], TRAIN_PATCH)
     # (a) one bf16 step on the fixed batch, no augmentation
     model, criterion = bf16_grads_vs_plain(config, inp, tgt, "train_bf16", "19 bf16 train", launches)
-    expect("train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
+    expect("train_bf16_step", k2=(0, n.k2), k3=(0, n.k3))
     optimizer = create_optimizer(config["optimizer"], model)
 
     def train_step():
@@ -1382,7 +1437,7 @@ def bf16_train_phases(device, batches, f32_step_ms):
     # (c) the trainer's own fit with augmentation: 6 steps and 1 validation
     trainer = fit_with_augmentation(config, host_batch, val_batch, TRAIN_STEPS, TRAIN_STEPS, "train_bf16_augmented",
                                     "19 bf16 train", launches)
-    expect("train_bf16_augmented", k2=(0, n_conv * (TRAIN_STEPS + 1)), k3=(0, n_conv * TRAIN_STEPS))
+    expect("train_bf16_augmented", k2=(0, n.k2 * (TRAIN_STEPS + 1)), k3=(0, n.k3 * TRAIN_STEPS))
     # times: the bf16 step, the augmented step and the augmenter's share
     augmenter, gens = trainer.device_augmenter, trainer.augment_generators
     label = torch.from_numpy(host_batch[1]).to(device)
@@ -1415,11 +1470,12 @@ def bf16_train_phases(device, batches, f32_step_ms):
                   **TRAIN_SECTIONS, "lr_scheduler": dict(RES_LR_SCHEDULER), "loaders": copy.deepcopy(TPU_LOADERS)}
         trainer = fit_with_augmentation(config, host_batch, val_batch, 2, 10**9, "resunet_train_bf16_augmented",
                                         "20 resunet bf16 train", launches)
-        expect("resunet_train_bf16_augmented", k2=(0, 4 * 2), k1=(0, 14 * 2), k3=(0, 18 * 2))
+        n = plan_launches(config["model"], TRAIN_PATCH)
+        expect("resunet_train_bf16_augmented", k2=(0, n.k2 * 2), k1=(0, n.k1 * 2), k3=(0, n.k3 * 2))
         del trainer
         model, criterion = bf16_grads_vs_plain(config, inp, tgt, "resunet_train_bf16", "20 resunet bf16 train",
                                                launches)
-        expect("resunet_train_bf16_step", k2=(0, 4), k1=(0, 14), k3=(0, 18))
+        expect("resunet_train_bf16_step", k2=(0, n.k2), k1=(0, n.k1), k3=(0, n.k3))
         optimizer = create_optimizer(config["optimizer"], model)
         step_ms = timed_ms(train_step)
         log(f"[20 resunet bf16 train step] {TRAIN_PATCH} batch 1: bf16 {step_ms:.2f} ms "
@@ -1473,11 +1529,11 @@ def recipe_phases(device, volume, batches):
           f"the multiclass _tpu spec is {spec}")
     config = {"manual_seed": SEED, "device": "cuda", **copy.deepcopy(MULTICLASS_TPU)}
     inp, tgt = torch.from_numpy(raw).to(device), torch.from_numpy(classes).to(device)
-    n_conv = 14
+    n = plan_launches(config["model"], TRAIN_PATCH)
     # (a) one bf16 step on the fixed batch, no augmentation
     model, criterion = bf16_grads_vs_plain(config, inp, tgt, "multiclass_train_bf16", "21 multiclass train",
                                            launches)
-    expect_launches(launches, "multiclass_train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
+    expect_launches(launches, "multiclass_train_bf16_step", k2=(0, n.k2), k3=(0, n.k3))
     with torch.no_grad():
         logits = model(inp)[1]
         ce, ce64 = criterion(logits, tgt).item(), criterion(logits.double(), tgt).item()
@@ -1499,8 +1555,8 @@ def recipe_phases(device, volume, batches):
     trainer = fit_with_augmentation(config, (raw, classes), val_batch, RECIPE_STEPS, RECIPE_STEPS,
                                     "multiclass_train_bf16_augmented", "21 multiclass train", launches,
                                     prepare=record_twin)
-    expect_launches(launches, "multiclass_train_bf16_augmented", k2=(0, n_conv * (RECIPE_STEPS + 1)),
-                    k3=(0, n_conv * RECIPE_STEPS))
+    expect_launches(launches, "multiclass_train_bf16_augmented", k2=(0, n.k2 * (RECIPE_STEPS + 1)),
+                    k3=(0, n.k3 * RECIPE_STEPS))
     check(len(twin_calls) == 1, f"the validation called the MeanIoU twin {len(twin_calls)} times")
     probs_v, target_v, twin_score = twin_calls[0]
     host_score = MeanIoU()(probs_v.cpu().numpy(), target_v.cpu().numpy())
@@ -1543,11 +1599,12 @@ def recipe_phases(device, volume, batches):
     del step, model, optimizer, trainer, augmenter, eval_model, probs_v, target_v, twin_calls, inp, tgt, x_val, y_val
     torch.cuda.empty_cache()
 
-    # 22. denoising_tpu: first its kernels at the 18 forward and 18 input-gradient shapes
+    # 22. denoising_tpu: first its kernels at its forward and input-gradient shapes (22 and 22: at 128^3 its 4
+    # decoders fuse)
     torch.manual_seed(SEED)
     shapes = path_conv_shapes(get_model(DENOISING_MODEL), DENOISING_PATCH)
     dgrads = dgrad_shapes(get_model(DENOISING_MODEL), DENOISING_PATCH)
-    check((len(shapes), len(dgrads)) == (18, 18), f"denoising UNet3D: {len(shapes)} convs, {len(dgrads)} dgrads")
+    log(f"[22 denoising kernels] {len(shapes)} forward and {len(dgrads)} input-gradient shapes (kernel_conv_plan)")
     deepest = tuple(d // 2 ** (len(DENOISING_MODEL["f_maps"]) - 1) for d in DENOISING_PATCH)
     new = {"F = 8": [name for name, _, f in shapes if f == 8],
            f"256 channels at {deepest}": [name for name, shape, f in shapes if shape[1:4] == deepest and f == 256]
@@ -1582,9 +1639,9 @@ def recipe_phases(device, volume, batches):
           f"the denoising _tpu spec is {spec}")
     config = {"manual_seed": SEED, "device": "cuda", **copy.deepcopy(DENOISING_TPU)}
     inp, tgt = torch.from_numpy(d_batch[0]).to(device), torch.from_numpy(d_batch[1]).to(device)
-    n_conv = 18
+    n = plan_launches(config["model"], DENOISING_PATCH)
     model, criterion = bf16_grads_vs_plain(config, inp, tgt, "denoising_train_bf16", "22 denoising train", launches)
-    expect_launches(launches, "denoising_train_bf16_step", k2=(0, n_conv), k3=(0, n_conv))
+    expect_launches(launches, "denoising_train_bf16_step", k2=(0, n.k2), k3=(0, n.k3))
     used = []
 
     def record_twin(trainer):
@@ -1595,8 +1652,8 @@ def recipe_phases(device, volume, batches):
     trainer = fit_with_augmentation(config, d_batch, d_val, RECIPE_STEPS, RECIPE_STEPS,
                                     "denoising_train_bf16_augmented", "22 denoising train", launches,
                                     prepare=record_twin)
-    expect_launches(launches, "denoising_train_bf16_augmented", k2=(0, n_conv * (RECIPE_STEPS + 1)),
-                    k3=(0, n_conv * RECIPE_STEPS))
+    expect_launches(launches, "denoising_train_bf16_augmented", k2=(0, n.k2 * (RECIPE_STEPS + 1)),
+                    k3=(0, n.k3 * RECIPE_STEPS))
     check(len(used) == 1 and math.isfinite(used[0].item()), f"the PSNR twin gave {used}")
     log(f"[22 denoising train] spec: paired {names} (RandomRotate stays on the host); validation PSNR twin "
         f"{used[0].item():.4f} dB")
@@ -1626,7 +1683,8 @@ def recipe_phases(device, volume, batches):
 
     probs = count_launches(launches, "multiclass_device_sweep", sweep)
     n_patches = len(SliceBuilder._build_slices(np.broadcast_to(np.float32(0), VOLUME), PATCH, STRIDE))
-    expect_launches(launches, "multiclass_device_sweep", k2=(14 * n_patches, 0))
+    patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+    expect_launches(launches, "multiclass_device_sweep", k2=(plan_launches(model, patch_in).k2 * n_patches, 0))
     seg = predictor._to_segmentation(probs)
     check(probs.shape == (3, *VOLUME) and np.isfinite(probs).all(), f"multiclass probabilities {probs.shape}")
     check(np.array_equal(seg, torch.from_numpy(probs).argmax(0).numpy()), "segmentation != argmax of the sweep")
@@ -1983,9 +2041,9 @@ def options_phase(device, batch, smi):
 
         path = f"options_{key}_forward"
         probs = count_launches(launches, path, forward)
-        expect_launches(launches, path, k2=(14 if key != "anisotropic" else 0, 0))
+        expect_launches(launches, path, k2=(plan_launches(model, TRAIN_PATCH).k2, 0))
         check(on_kernels == (14 if key != "anisotropic" else 0) and torch.isfinite(probs).all().item(),
-              f"{key}: {on_kernels} convs on the kernels")
+              f"{key}: {on_kernels} conv layers on the kernels")
         with plain_conv():
             plain = forward()
             plain_ms = timed_ms(forward)
@@ -2016,7 +2074,8 @@ def options_phase(device, batch, smi):
             grads64 = grads_of_step(copy.deepcopy(model).double(), criterion, inp, target, torch.float64)
     finally:
         torch.backends.cudnn.deterministic = False
-    expect_launches(launches, "options_trilinear_step", k2=(14, 0), k3=(14, 0))
+    n = plan_launches(model, TRAIN_PATCH)
+    expect_launches(launches, "options_trilinear_step", k2=(n.k2, 0), k3=(n.k3, 0))
     err_k, err_p = ({k: worst_rel({k: g[k]}, grads64)[0] for k in g} for g in (grads, grads_plain))
     vs_plain = worst_rel(grads, grads_plain)
     margin = min((2 * err_p[k] + RES_GRAD_TOL - err_k[k], k) for k in grads)
@@ -2049,7 +2108,7 @@ def breadth_phase(device, batches, smi):
     from pytorch3dunet_tpu_torch.utils.optim import create_optimizer
 
     launches = {}
-    n_conv = 14
+    n = plan_launches(MODEL, TRAIN_PATCH)
     (raw, target), val_batch = batches
     inp, tgt = torch.from_numpy(raw).to(device), torch.from_numpy(target).to(device)
 
@@ -2072,9 +2131,9 @@ def breadth_phase(device, batches, smi):
                  for remat in (False, True)}
     finally:
         torch.backends.cudnn.deterministic = False
-    expect_launches(launches, "breadth_remat_False_step", k2=(n_conv, 0), k3=(n_conv, 0))
+    expect_launches(launches, "breadth_remat_False_step", k2=(n.k2, 0), k3=(n.k3, 0))
     # remat recomputes every level in backward: each conv's forward runs twice
-    expect_launches(launches, "breadth_remat_True_step", k2=(2 * n_conv, 0), k3=(n_conv, 0))
+    expect_launches(launches, "breadth_remat_True_step", k2=(2 * n.k2, 0), k3=(n.k3, 0))
     gap = worst_rel(grads[True], grads[False])
     log(f"[28 remat] one f32 step of {TRAIN_PATCH}: launches {launches['breadth_remat_True_step']} with remat, "
         f"{launches['breadth_remat_False_step']} without; grads with remat against without, worst over "
@@ -2096,7 +2155,7 @@ def breadth_phase(device, batches, smi):
             if dtype is not None:
                 path = f"breadth_remat_{remat}_bf16_step"
                 count_launches(launches, path, step)
-                expect_launches(launches, path, k2=(0, (1 + remat) * n_conv), k3=(0, n_conv))
+                expect_launches(launches, path, k2=(0, (1 + remat) * n.k2), k3=(0, n.k3))
             torch.cuda.reset_peak_memory_stats()
             ms = timed_ms(step)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2130,8 +2189,8 @@ def breadth_phase(device, batches, smi):
             results[name] = ({n: p.grad.detach().double() for n, p in trainer.model.named_parameters()},
                              {n: p.detach().double() for n, p in trainer.model.named_parameters()})
             del trainer
-    expect_launches(launches, "breadth_accum_update", k2=(2 * n_conv, 0), k3=(2 * n_conv, 0))
-    expect_launches(launches, "breadth_batch2_update", k2=(n_conv, 0), k3=(n_conv, 0))
+    expect_launches(launches, "breadth_accum_update", k2=(2 * n.k2, 0), k3=(2 * n.k3, 0))
+    expect_launches(launches, "breadth_batch2_update", k2=(n.k2, 0), k3=(n.k3, 0))
     (accum_grads, accum_params), (batch2_grads, batch2_params) = results["accum"], results["batch2"]
     # relative to the step's max |g|: the first GroupNorm's weight gradient is
     # ~1e-3 of it (ROADMAP Queue 3, small gradients), where another summation
@@ -2202,10 +2261,10 @@ def breadth_phase(device, batches, smi):
             resumed, rest_losses, rest_s = run(resume_dir, 6, "breadth_tpu_resumed_fit")
         finally:
             torch.backends.cudnn.deterministic = False
-        # 2 microbatches an update, 14 bf16 K2 and 14 bf16 K3 each; a validation 14 K2
-        expect_launches(launches, "breadth_tpu_full_fit", k2=(0, 12 * n_conv + n_conv), k3=(0, 12 * n_conv))
-        expect_launches(launches, "breadth_tpu_stopped_fit", k2=(0, 8 * n_conv + n_conv), k3=(0, 8 * n_conv))
-        expect_launches(launches, "breadth_tpu_resumed_fit", k2=(0, 4 * n_conv), k3=(0, 4 * n_conv))
+        # 2 microbatches an update, n.k2 bf16 K2 and n.k3 bf16 K3 each; a validation n.k2 K2
+        expect_launches(launches, "breadth_tpu_full_fit", k2=(0, 12 * n.k2 + n.k2), k3=(0, 12 * n.k3))
+        expect_launches(launches, "breadth_tpu_stopped_fit", k2=(0, 8 * n.k2 + n.k2), k3=(0, 8 * n.k3))
+        expect_launches(launches, "breadth_tpu_resumed_fit", k2=(0, 4 * n.k2), k3=(0, 4 * n.k3))
         state = load_checkpoint(Path(resume_dir) / "last_checkpoint.pytorch")
         names = [n for n, _ in stopped.model.named_parameters()]
         check(resumed.num_iterations == 6 and len(first_losses) == 8 and len(rest_losses) == 4
@@ -2308,7 +2367,6 @@ def serving_phase(device, volume, smi):
     from pytorch3dunet_tpu_torch.utils.weights import jax_checkpoint_bytes, load_jax_checkpoint
 
     launches = {}
-    n_conv = 14
     torch.manual_seed(SEED + 29)
     model = get_model(dict(MODEL))
     randomize_group_norms(model, torch.Generator().manual_seed(SEED + 29))
@@ -2339,6 +2397,7 @@ def serving_phase(device, volume, smi):
             return model(((x - mean) / max(std, 1e-10)).movedim(-1, 1))[0].movedim(1, -1)
 
     probs = count_launches(launches, "export_eager", lambda: eager(raw[1]))
+    n_conv = plan_launches(model, EXPORT_PATCH).k2
     expect_launches(launches, "export_eager", k2=(n_conv, 0))
     with plain_conv():
         err = (probs - eager(raw[1])).abs().max().item()
@@ -2438,7 +2497,8 @@ def serving_phase(device, volume, smi):
             base = f"http://127.0.0.1:{server.server_address[1]}"
             served = count_launches(launches, "serve", lambda: post_npy(base, volume))
             n_patches = math.prod(-(-v // s) for v, s in zip(VOLUME, STRIDE))
-            expect_launches(launches, "serve", k2=(n_conv * n_patches, 0))
+            patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+            expect_launches(launches, "serve", k2=(plan_launches(model, patch_in).k2 * n_patches, 0))
 
             def direct():
                 return session.predictor.predict_array(volume, PATCH, STRIDE, HALO, normalize=session.normalize,
@@ -2809,7 +2869,8 @@ def parallel_phase(device, batches, volume, step_ms, smi):
             finally:
                 torch.backends.cudnn.deterministic = False
             check(sharded.mesh is not None and sharded.mesh.size == 1, f"the trainer's space mesh {sharded.mesh}")
-            expect_launches(launches, "sharded_train_ws1", k2=(14, 0), k3=(14, 0))
+            sharded_n = plan_launches(MODEL, TRAIN_PATCH, space_mesh=True)
+            expect_launches(launches, "sharded_train_ws1", k2=(sharded_n.k2, 0), k3=(sharded_n.k3, 0))
             grads_plain, grads64 = ({k: g.cpu() for k, g in d.items()} for d in (grads_plain, grads64))
             gate(grads, grads_plain, grads64, "(a) the trainer's D-sharded step at world size 1, NCCL")
 
@@ -2817,7 +2878,7 @@ def parallel_phase(device, batches, volume, step_ms, smi):
             sharded16 = phase30_trainer(checkpoint_dir, batches[0], spatial=True, dtype="bfloat16")
             grads16 = count_launches(launches, "sharded_train_bf16_ws1",
                                      lambda: trainer_update(sharded16, state, batches[0]))
-            expect_launches(launches, "sharded_train_bf16_ws1", k2=(0, 14), k3=(0, 14))
+            expect_launches(launches, "sharded_train_bf16_ws1", k2=(0, sharded_n.k2), k3=(0, sharded_n.k3))
             sharded16.model.load_state_dict(state)
             with plain_conv():
                 grads16_plain = {k: g.cpu() for k, g in grads_of_step(sharded16.model, criterion, inp, target).items()}
@@ -2919,7 +2980,12 @@ def parallel_phase(device, batches, volume, step_ms, smi):
         check(res["space_ranks"] == PARALLEL_RANKS and res["local_d"] == TRAIN_PATCH[0] // PARALLEL_RANKS,
               f"rank {rank}: space mesh {res['space_ranks']}, local D {res['local_d']}")
         check(res["dp_ranks"] == PARALLEL_RANKS, f"rank {rank}: data mesh of {res['dp_ranks']} ranks")
-        for path, k2, k3 in (("sharded", 14, 14), ("dp", 14, 14), ("sweep", 28, 0), ("coop", 14, 0)):
+        # the D-sharded step and slab take the generic decoders; the data-parallel step and the grid sweep not
+        sharded_n, dp_n = plan_launches(MODEL, TRAIN_PATCH, space_mesh=True), plan_launches(MODEL, TRAIN_PATCH)
+        patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+        sweep_k2 = 2 * plan_launches(MODEL, patch_in).k2
+        for path, k2, k3 in (("sharded", sharded_n.k2, sharded_n.k3), ("dp", dp_n.k2, dp_n.k3),
+                             ("sweep", sweep_k2, 0), ("coop", sharded_n.k2, 0)):
             launches[f"{path}_rank{rank}"] = res[f"{path}_launches"]
             expect_launches(launches, f"{path}_rank{rank}", k2=(k2, 0), k3=(k3, 0))
         gate(res["sharded_grads"], grads_plain, grads64,
@@ -2953,6 +3019,309 @@ def parallel_phase(device, batches, volume, step_ms, smi):
         f"{ranks_s:.1f} s with their start; phase 30 took {time.perf_counter() - phase_start:.1f} s. Two ranks "
         "sharing one card say nothing of scaling")
     return launches
+
+
+# phase 31: the JAX package's default decoder paths against the generic ones,
+# each switch read at call time. (a)-(c) hold each path as phases 4, 13 and 16
+# hold theirs; (e) holds the fused 2D BatchNorm decoder to the generic one
+# within DECODER_2D_TOL of the logits' max, and its running statistics within
+# DECODER_2D_TOL of theirs (f32 cuDNN on both: the split conv and the one-pass
+# statistics sum in another order). The port's default of each switch is the
+# path that is no slower than the other beyond DEFAULT_SPREAD on the forwards
+# and steps below (each timed in turns: generic, new, new, generic)
+DECODER_SWITCHES = {"fused": ("P3DUNET_FUSED_DECODER", "1", "0"), "deconv": ("P3DUNET_DECONV", "phase", "xla")}
+DECODER_2D_TOL, DEFAULT_SPREAD = 1e-4, 0.02
+CHECK_STEPS = 8  # Adam steps before (b)'s and (c)'s gradient check
+
+
+def switched(name, value, fn):
+    """fn() with the environment variable `name` set to `value`, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def in_turns(fns):
+    """({path: mean of its two readings}, {path: [readings]}): each fn() (a
+    median of CUDA-event timings) called in the order a, b, b, a."""
+    order = list(fns) + list(reversed(fns))
+    times = {path: [] for path in fns}
+    for path in order:
+        times[path].append(fns[path]())
+    return {path: sum(v) / len(v) for path, v in times.items()}, times
+
+
+def decoder_phase(device, batch, smi):
+    """Phase 31: the fused decoder (UNet3D, UNet2D bcr) and the phase deconv
+    (ResidualUNet3D) against the generic decoder and cuDNN's transposed conv:
+    values, launches, times, profiles, the kernels at the shapes these paths
+    give them, and the rule's reading for each default. `batch` is phase 7's
+    train batch. Returns the launches of each path by kernel and dtype, and
+    for the kernels line the per-shape rows and K2's and K3's largest errors
+    by dtype at those shapes."""
+    import torch.nn.functional as F
+
+    from pytorch3dunet_tpu_torch.losses import get_loss_criterion
+    from pytorch3dunet_tpu_torch.models.unet import get_model, kernel_conv_plan
+    from pytorch3dunet_tpu_torch.ops.conv3d import (conv3d_fwd, conv3d_fwd_reference, conv3d_input_grad,
+                                                    conv3d_input_grad_reference, flip_weight, plain_conv)
+    from pytorch3dunet_tpu_torch.ops.upconv import (DECONV_DEFAULT, FUSED_DECODER_DEFAULT, _phase_embed,
+                                                    collapse_deconv_kernels)
+
+    launches = {}
+    readings = {}
+    patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    inp, target = (torch.from_numpy(t).to(device) for t in batch)
+    criterion = get_loss_criterion({"loss": dict(TRAIN_SECTIONS["loss"])})
+
+    def seeded(config, dtype=None):
+        torch.manual_seed(SEED)
+        model = get_model({**config, **({"dtype": dtype} if dtype else {})})
+        randomize_group_norms(model, torch.Generator().manual_seed(SEED + 31))
+        return model.to(device)
+
+    def forwards(tag, switch, config, tapfold=False):
+        """(a) / (c): the patch forward on each path, f32 and bf16."""
+        name, new, old = DECODER_SWITCHES[switch]
+        x = torch.randn((1, 1, *patch_in), generator=gen, device=device)
+        model = seeded(config).eval()
+        with torch.inference_mode(), plain_conv():
+            ref = switched(name, old, lambda: model(x)[0])
+        f32_out = None
+        for dtype in (None, "bfloat16"):
+            m = model if dtype is None else seeded(config, dtype).eval()
+            suffix = "" if dtype is None else "_bf16"
+
+            def fwd():
+                with torch.inference_mode():
+                    return m(x)[0]
+
+            outs, ms = {}, {}
+            for path, value in (("new", new), ("generic", old)):
+                key = f"{tag}_{path}_forward{suffix}"
+                outs[path] = switched(name, value, lambda: count_launches(launches, key, fwd))
+                n = switched(name, value, lambda: plan_launches(m, patch_in))
+                want = (n.k2, 0) if dtype is None else (0, n.k2)
+                want1 = (n.k1, 0) if dtype is None else (0, n.k1)
+                expect_launches(launches, key, k2=want, k1=want1)
+            if dtype is None:
+                errs = {p: (o - ref).abs().max().item() for p, o in outs.items()}
+                check(max(errs.values()) <= FORWARD_TOL,
+                      f"31 {tag} f32 forwards against the generic plain one: {errs}")
+                f32_out = outs["new"]
+            else:
+                with plain_conv():
+                    ref16 = switched(name, old, fwd)
+                errs = {p: (o.float() - ref16.float()).abs().max().item() for p, o in outs.items()}
+                errs_f32 = {p: (o.float() - f32_out).abs().max().item() for p, o in outs.items()}
+                check(max(errs.values()) <= BF16_VS_PLAIN_TOL and max(errs_f32.values()) <= BF16_VS_F32_TOL,
+                      f"31 {tag} bf16 forwards: vs the generic bf16 plain one {errs}, vs the f32 one {errs_f32}")
+                errs = {**errs, **{f"{p} vs f32": e for p, e in errs_f32.items()}}
+            means, runs = in_turns({p: (lambda v=v: switched(name, v, lambda: timed_ms(fwd, runs=3)))
+                                    for p, v in (("generic", old), ("new", new))})
+            readings[f"{tag} forward{suffix}"] = means
+            log(f"[31 {tag}] one {patch_in} forward{' bf16' if dtype else ''}: {name}={new} {means['new']:.2f} ms, "
+                f"{name}={old} {means['generic']:.2f} ms (medians in turns {runs}); launches "
+                f"{launches[f'{tag}_new_forward{suffix}']} vs {launches[f'{tag}_generic_forward{suffix}']}; max|d| "
+                f"{', '.join(f'{p} {e:.3e}' for p, e in errs.items())} ({smi})")
+            for path, value in (("new", new), ("generic", old)) if tag == "unet3d" else ():
+                switched(name, value, lambda: profile_step(fwd, means[path], top=8, tag=f"31 {tag} profile",
+                                                           what=f"one {tag} forward{suffix}, {name}={value}"))
+            del m
+        del model, ref, f32_out
+        torch.cuda.empty_cache()
+
+    def step(tag, switch, config):
+        """(b) / (c): from CHECK_STEPS Adam steps on the new path and GroupNorm
+        affines drawn anew (phase 7's state: trained weights, random affines),
+        one step's grads on the new path held to a float64 plain step by phase
+        13's gate, beside the generic path's distance from it; then the f32
+        step (forward + backward + Adam at the recipe's rate) on phase 7's
+        batch, timed on each path in turns. The steps that reach the checked
+        state run on cuDNN's deterministic algorithms (K1-K3 are), so that
+        state is the same in every run. After steps on cuDNN's default
+        algorithms it differs from run to run, and the ResidualUNet3D's two
+        deepest deconv weights (max|g| ~1e-5, the mean |g| ~1e-7) are so
+        ill-conditioned there that the plain f32 step sat 4.6e-3 of max|g|
+        from float64 in one state while the kernels sat 5e-5, and the kernels
+        5.7e-3 from the plain step in another."""
+        name, new, old = DECODER_SWITCHES[switch]
+        model = seeded(config).train()
+        optimizer = torch.optim.Adam(model.parameters(), lr=TRAIN_SECTIONS["optimizer"]["learning_rate"])
+
+        def train_step():
+            optimizer.zero_grad(set_to_none=True)
+            criterion(model(inp)[1], target).backward()
+            optimizer.step()
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            for _ in range(CHECK_STEPS):
+                switched(name, new, train_step)
+            randomize_group_norms(model, torch.Generator().manual_seed(SEED + 32))
+            grads = switched(name, new, lambda: count_launches(launches, f"{tag}_new_step",
+                                                               lambda: grads_of_step(model, criterion, inp, target)))
+            grads_old = switched(name, old, lambda: grads_of_step(model, criterion, inp, target))
+            with plain_conv():
+                grads_plain = switched(name, new, lambda: grads_of_step(model, criterion, inp, target))
+                grads64 = switched(name, new, lambda: grads_of_step(copy.deepcopy(model).double(), criterion, inp,
+                                                                    target, torch.float64))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        n = switched(name, new, lambda: plan_launches(model, TRAIN_PATCH))
+        expect_launches(launches, f"{tag}_new_step", k2=(n.k2, 0), k3=(n.k3, 0), k1=(n.k1, 0))
+        err_k, err_old, err_p = ({k: worst_rel({k: g[k]}, grads64)[0] for k in g}
+                                 for g in (grads, grads_old, grads_plain))
+        margin = min((2 * err_p[k] + RES_GRAD_TOL - err_k[k], k) for k in grads)
+        vs_plain = worst_rel(grads, grads_plain)
+        vs_plain_each = {k: worst_rel({k: grads[k]}, grads_plain)[0] for k in grads}
+        max_g = {k: g.abs().max().item() for k, g in grads64.items()}
+        del grads, grads_old, grads_plain, grads64
+        means, runs = in_turns({p: (lambda v=v: switched(name, v, lambda: timed_ms(train_step, runs=3)))
+                                for p, v in (("generic", old), ("new", new))})
+        readings[f"{tag} step"] = means
+        log(f"[31 {tag}] one f32 step of {TRAIN_PATCH} (forward + backward + Adam): {name}={new} "
+            f"{means['new']:.2f} ms, {name}={old} {means['generic']:.2f} ms (medians in turns {runs}); launches "
+            f"{launches[f'{tag}_new_step']}; grads after {CHECK_STEPS} deterministic steps against a float64 plain "
+            f"step: kernels worst {max(err_k.values()):.3e} ({max(err_k, key=err_k.get)}; {name}={old}: "
+            f"{max(err_old.values()):.3e}), plain f32 worst {max(err_p.values()):.3e}, least margin to 2 x plain + "
+            f"{RES_GRAD_TOL}: {margin[0]:.3e} ({margin[1]}); vs the plain f32 step {vs_plain[0]:.3e} ({vs_plain[1]}) "
+            f"({smi})")
+        if margin[0] < 0 or vs_plain[0] > VS_PLAIN_CAP:
+            for k in sorted(err_k, key=lambda k: 2 * err_p[k] - err_k[k])[:8]:
+                log(f"[31 {tag}] {k}: kernels {err_k[k]:.3e}, {name}={old} {err_old[k]:.3e}, plain f32 "
+                    f"{err_p[k]:.3e} from float64, kernels vs plain {vs_plain_each[k]:.3e}, max|g| {max_g[k]:.3e}")
+        check(margin[0] >= 0 and vs_plain[0] <= VS_PLAIN_CAP,
+              f"31 {tag} step grads: margin {margin}, vs the plain f32 step {vs_plain}")
+        del model, optimizer
+        torch.cuda.empty_cache()
+
+    # (a) the confocal UNet3D forward with the fused decoder
+    forwards("unet3d", "fused", MODEL)
+    # (d) K2 and K3 at the shapes these paths give them
+    cases, seen = [], set()
+    for config, (name, new, _) in ((MODEL, DECODER_SWITCHES["fused"]), (RES_MODEL, DECODER_SWITCHES["deconv"])):
+        model = get_model(config)
+        for patch in (patch_in, TRAIN_PATCH):
+            for conv, shape, f, _, _ in switched(name, new, lambda: kernel_conv_plan(model, patch)):
+                key = (shape, f, "upsampling" in conv)  # a deconv is also timed against F.conv_transpose3d
+                if ("[" in conv or "upsampling" in conv) and key not in seen:
+                    seen.add(key)
+                    cases.append((f"{config['name']} {conv}", shape, f))
+    log(f"[31 K2/K3] {len(cases)} conv shapes of the fused decoders' two branches and the phase deconvs")
+    errors, failed = check_kernel("K2", lambda x, w, b: conv3d_fwd(x, w, b, variant="roll"), conv3d_fwd_reference,
+                                  [(n, s, f, False) for n, s, f in cases], gen, device, phase=31)
+    check(not failed, f"K2 disagrees with the plain version at the decoder shapes: {failed}")
+    dgrads = [(f"dgrad {n}", (*s[:4], f), s[4]) for n, s, f in cases]
+    errors_k3, failed = check_kernel("K3", lambda dy, w, _: conv3d_input_grad(dy, w.transpose(3, 4)),
+                                     lambda dy, w, _: conv3d_input_grad_reference(dy, w.transpose(3, 4)),
+                                     [(n, s, c, False) for n, s, c in dgrads], gen, device, phase=31)
+    check(not failed, f"K3 disagrees with its plain version at the decoder shapes: {failed}")
+    rows = []
+
+    def quick(fn):
+        return timed_ms(fn, runs=3)
+
+    with torch.inference_mode():
+        for (name, shape, f), (_, dy_shape, c) in zip(cases, dgrads):
+            deconv = "upsampling" in name
+            x, w, _ = conv_inputs(shape, f, torch.float32, False, gen, device)
+            row = {"conv": name, "x": shape, "F": f, "k2_ms": quick(lambda: conv3d_fwd(x, w, None, "roll")),
+                   "plain_ms": quick(lambda: conv3d_fwd_reference(x, w)),
+                   "k2_bf16_ms": quick(lambda: conv3d_fwd(x.bfloat16(), w.bfloat16(), None, "roll")),
+                   "bound_ms": tc_bound(shape, f, False)[0],
+                   "bound_bf16_ms": tc_bound(shape, f, False, torch.bfloat16)[0]}
+            if deconv:
+                # the same function as one cuDNN call: the transposed conv of x with a torch weight
+                weight = torch.randn((shape[4], f // 8, 3, 3, 3), generator=gen, device=device)
+                weight = weight / (27 * shape[4]) ** 0.5
+                kernel = weight.flip(2, 3, 4).permute(2, 3, 4, 0, 1)
+                embedded = _phase_embed(collapse_deconv_kernels(kernel))
+                x_ncdhw = x.permute(0, 4, 1, 2, 3)
+                want = F.conv_transpose3d(x_ncdhw, weight, stride=2, padding=1)
+                got = conv3d_fwd(x, embedded, None, "roll")
+                got = got.reshape(*shape[:4], 2, 2, 2, f // 8).permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(
+                    1, f // 8, *(2 * s for s in shape[1:4]))[:, :, :-1, :-1, :-1]
+                err = (got - want).abs().max().item() / want.abs().max().item()
+                check(err <= TOL[torch.float32], f"31 {name}: K2 + depth-to-space vs F.conv_transpose3d {err}")
+                row["library_ms"] = quick(lambda: F.conv_transpose3d(x_ncdhw, weight, stride=2, padding=1))
+                row["library_call"] = f"F.conv_transpose3d (max|d| / max {err:.2e})"
+            else:
+                row["library_ms"] = quick(lambda: library_conv(x, w, None))
+                row["library_call"] = "F.conv3d of the embedded kernel"
+            dy, wt, _ = conv_inputs(dy_shape, c, torch.float32, False, gen, device)
+            w_fwd = wt.transpose(3, 4).contiguous()
+            w_flip = flip_weight(w_fwd).permute(4, 3, 0, 1, 2)
+            row.update({"dy": dy_shape, "C": c, "k3_ms": quick(lambda: conv3d_input_grad(dy, w_fwd)),
+                        "k3_plain_ms": quick(lambda: conv3d_input_grad_reference(dy, w_fwd)),
+                        "k3_library_ms": quick(lambda: F.conv3d(dy.permute(0, 4, 1, 2, 3), w_flip, padding=1)),
+                        "k3_bf16_ms": quick(lambda: conv3d_input_grad(dy.bfloat16(), w_fwd.bfloat16())),
+                        "k3_bound_ms": tc_bound(dy_shape, c, False)[0]})
+            rows.append(row)
+            log(f"[31 K2/K3] {name:58s} x{shape} F={f:<4d} K2 {row['k2_ms']:.3f} ms (3xTF32 bound "
+                f"{row['bound_ms']:.3f}, bf16 {row['k2_bf16_ms']:.3f} vs bound {row['bound_bf16_ms']:.3f}) | plain "
+                f"{row['plain_ms']:.3f} | {row['library_call']} {row['library_ms']:.3f} || K3 dy{dy_shape} -> "
+                f"C={c}: "
+                f"{row['k3_ms']:.3f} ms (bound {row['k3_bound_ms']:.3f}, bf16 {row['k3_bf16_ms']:.3f}) | plain "
+                f"{row['k3_plain_ms']:.3f} | F.conv3d flipped {row['k3_library_ms']:.3f} ({smi})")
+            del x, w, dy, wt, w_fwd, w_flip
+    torch.cuda.empty_cache()
+
+    # (b) its step
+    step("unet3d", "fused", MODEL)
+    # (c) the light-sheet ResidualUNet3D with the phase deconv, under P3DUNET_TAPFOLD=1 as phases 11-14
+    os.environ["P3DUNET_TAPFOLD"] = "1"
+    try:
+        forwards("resunet", "deconv", RES_MODEL)
+        step("resunet", "deconv", RES_MODEL)
+    finally:
+        os.environ.pop("P3DUNET_TAPFOLD", None)
+
+    # (e) the DSB2018 UNet2D (bcr): one train-mode forward at its batch on each path
+    x2 = torch.randn((DSB_BATCH, 1, *DSB_CROP), generator=gen, device=device)
+    name, new, old = DECODER_SWITCHES["fused"]
+    torch.manual_seed(SEED)
+    base = get_model(dict(DSB_MODEL)).to(device)
+    results, models = {}, {}
+    for path, value in (("new", new), ("generic", old)):
+        models[path] = copy.deepcopy(base).train()
+        key = f"dsb_{path}_train_forward"
+        logits = switched(name, value, lambda: count_launches(launches, key, lambda: models[path](x2)[1].detach()))
+        expect_launches(launches, key)
+        results[path] = (logits, {k: v.clone() for k, v in models[path].named_buffers()})
+    (new_logits, new_buf), (old_logits, old_buf) = results["new"], results["generic"]
+    err = (new_logits - old_logits).abs().max().item() / old_logits.abs().max().item()
+    buf_err = max(((new_buf[k].double() - v.double()).abs().max() / v.double().abs().max().clamp_min(1e-30)).item()
+                  for k, v in old_buf.items())
+    check(err <= DECODER_2D_TOL and buf_err <= DECODER_2D_TOL and all(
+        int(v) == 1 for k, v in new_buf.items() if k.endswith("num_batches_tracked")),
+        f"31 dsb: fused vs generic logits {err}, running statistics {buf_err}")
+    means, runs = in_turns({p: (lambda v=v, p=p: switched(name, v, lambda: timed_ms(lambda: models[p](x2))))
+                            for p, v in (("generic", old), ("new", new))})
+    readings["dsb train forward"] = means
+    log(f"[31 dsb] UNet2D bcr train-mode forward of {DSB_BATCH} x {DSB_CROP}: fused {means['new']:.2f} ms, generic "
+        f"{means['generic']:.2f} ms (medians in turns {runs}); logits max|d| / max {err:.2e}, running statistics "
+        f"{buf_err:.2e} (tol {DECODER_2D_TOL}); 0 K1/K2/K3 ({smi})")
+    del base, models, results, x2
+    torch.cuda.empty_cache()
+
+    # the rule for the port's defaults
+    for switch, keys in (("fused", ("unet3d forward", "unet3d forward_bf16", "unet3d step")),
+                         ("deconv", ("resunet forward", "resunet step"))):
+        name, new, old = DECODER_SWITCHES[switch]
+        ratios = {k: readings[k]["new"] / readings[k]["generic"] for k in keys}
+        verdict = new if all(r <= 1 + DEFAULT_SPREAD for r in ratios.values()) else old
+        default = FUSED_DECODER_DEFAULT if switch == "fused" else DECONV_DEFAULT
+        log(f"[31 rule] {name}: new / generic {', '.join(f'{k} {r:.4f}' for k, r in ratios.items())} -> the rule "
+            f"picks {name}={verdict}; the port's default is {default} ({smi})")
+    return launches, {"rows": rows, "errors_k2": errors, "errors_k3": errors_k3}
 
 
 def synthetic_batch(rs):
@@ -3048,7 +3417,7 @@ def main():
     zz, yy, xx = np.meshgrid(*(np.linspace(0, 6 * np.pi, s, dtype=np.float32) for s in VOLUME), indexing="ij")
     volume = (np.sin(zz) * np.cos(yy) * np.sin(xx) + 0.5 * rs.rand(*VOLUME)).astype(np.float32)
     patches = list(predictor.patches(volume, PATCH, STRIDE, HALO, TRANSFORMER))
-    n_conv = len(shapes)
+    n_conv = plan_launches(model, patch_in).k2
 
     reset_launches()
     start = time.perf_counter()
@@ -3193,8 +3562,8 @@ def main():
         grad_copies = Conv3dFunction.grad_copies
         trainer.loss_criterion = criterion
         n_val = TRAIN_STEPS // VALIDATE_AFTER
-        n_dgrad = len(train_dgrads)
-        expected = {"conv3d_fwd": n_conv * (TRAIN_STEPS + n_val), "conv3d_packw": n_dgrad * TRAIN_STEPS,
+        n_train = plan_launches(MODEL, TRAIN_PATCH)
+        expected = {"conv3d_fwd": n_train.k2 * (TRAIN_STEPS + n_val), "conv3d_packw": n_train.k3 * TRAIN_STEPS,
                     "conv3d_im2col": 0}
         log(f"[7 train] fit: {TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validations in {fit_s:.2f} s; "
             f"launches {train_launches} (expected {expected}); dy layout copies per step "
@@ -3357,8 +3726,12 @@ def main():
     # 30. parallelism: the D-sharded step at world size 1 (NCCL), two ranks sharing the card (gloo)
     parallel = parallel_phase(device, (train_batch, val_batch), volume, step_ms, smi)
 
+    # 31. the JAX package's default decoder paths: the fused decoder and the phase deconv
+    decoder, decoder_kernels = decoder_phase(device, train_batch, smi)
+    decoder_rows = decoder_kernels["rows"]
+
     by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth, **serving,
-                     **parallel}
+                     **parallel, **decoder}
     unet_paths = {"predict": predict_launches, "train": train_launches}
     paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
              **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}
@@ -3372,28 +3745,35 @@ def main():
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
          "launches_by_path": {path: counts["conv3d_fwd"] for path, counts in paths.items()},
          "launches_by_path_dtype": {path: counts["conv3d_fwd"] for path, counts in by_path_dtype.items()},
-         "max_abs_err": max(errors[torch.float32], res["errors_k2"][torch.float32]),
-         "max_abs_err_bf16": max(errors[torch.bfloat16], res["errors_k2"][torch.bfloat16]), "ms": conv_ms,
+         "max_abs_err": max(e[torch.float32] for e in (errors, res["errors_k2"], decoder_kernels["errors_k2"])),
+         "max_abs_err_bf16": max(e[torch.bfloat16] for e in (errors, res["errors_k2"], decoder_kernels["errors_k2"])),
+         "ms": conv_ms,
          "plain_ms": plain_ms, "plain_tf32_ms": plain_tf32_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "bound_ffma_ms": k2_bound_ffma[0], "bound_ffma_by": k2_bound_ffma[1], "library_ms": k2_sums["library_ms"],
          "library_tf32_ms": k2_sums["library_tf32_ms"], "library_call": "F.conv3d(x, w), NCDHW views",
          "bf16_ms": k2_sums["kernel_bf16_ms"], "bound_tc_bf16_ms": k2_sums["bound_tc_bf16_ms"],
          "library_bf16_ms": k2_sums["library_bf16_ms"], "mma_issued_over_useful": mma_ratio,
-         "ptxas": ptxas["conv3d_fwd"], "shapes": n_conv,
-         "work": "the 14 conv forwards of one UNet3D 112x234x234 patch, f32"},
+         "ptxas": ptxas["conv3d_fwd"], "shapes": len(shapes),
+         "work": f"the {len(shapes)} conv forwards of one UNet3D 112x234x234 patch, f32",
+         "decoder_shapes": [{k: row[k] for k in ("conv", "x", "F", "k2_ms", "k2_bf16_ms", "plain_ms", "library_ms",
+                                                 "library_call", "bound_ms", "bound_bf16_ms")}
+                            for row in decoder_rows]},
         {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
          "launches_by_path": {path: counts["conv3d_packw"] for path, counts in paths.items()},
          "launches_by_path_dtype": {path: counts["conv3d_packw"] for path, counts in by_path_dtype.items()},
-         "max_abs_err": max(errors_k3[torch.float32], res["errors_k3"][torch.float32]),
-         "max_abs_err_bf16": max(errors_k3[torch.bfloat16], res["errors_k3"][torch.bfloat16]),
+         "max_abs_err": max(e[torch.float32] for e in (errors_k3, res["errors_k3"], decoder_kernels["errors_k3"])),
+         "max_abs_err_bf16": max(e[torch.bfloat16]
+                                 for e in (errors_k3, res["errors_k3"], decoder_kernels["errors_k3"])),
          "ms": k3_sums["kernel_ms"], "plain_ms": k3_sums["reference_ms"], "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "bound_ffma_ms": k3_bound_ffma[0], "bound_ffma_by": k3_bound_ffma[1],
          "library_ms": k3_sums["library_ms"], "library_call": "F.conv3d(dy, flipped w), NCDHW views",
          "conv3d_input_ms": k3_sums["conv3d_input_ms"], "conv3d_input_tf32_ms": k3_sums["conv3d_input_tf32_ms"],
          "bf16_ms": k3_sums["kernel_bf16_ms"], "bound_tc_bf16_ms": k3_sums["bound_tc_bf16_ms"],
          "library_bf16_ms": k3_sums["library_bf16_ms"], "ptxas": ptxas["conv3d_packw"], "shapes": len(train_dgrads),
-         "work": "the 14 input gradients of one UNet3D 80x170x170 train step, f32"},
+         "work": f"the {len(train_dgrads)} input gradients of one UNet3D 80x170x170 train step, f32",
+         "decoder_shapes": [{k: row[k] for k in ("conv", "dy", "C", "k3_ms", "k3_bf16_ms", "k3_plain_ms",
+                                                 "k3_library_ms", "k3_bound_ms")} for row in decoder_rows]},
         {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
          "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
          "launches_by_path": {path: counts["conv3d_im2col"] for path, counts in paths.items()},
@@ -3406,7 +3786,7 @@ def main():
          "bound_tc_bf16_ms": res["k1_bound_tc_bf16_ms"], "library_bf16_ms": res["k1_library_bf16_ms"],
          "ptxas": ptxas["conv3d_im2col"],
          "k2_same_shapes_ms": res["k2_same_ms"], "shapes": res["k1_count"],
-         "work": "the 14 K1 conv forwards of one ResidualUNet3D 112x234x234 patch, f32"},
+         "work": f"the {res['k1_count']} K1 conv forwards of one ResidualUNet3D 112x234x234 patch, f32"},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,17 @@ statistics and dropout draws masks, in `eval()` running statistics and the
 identity. Every backward but the 3x3x3 conv's (ops/conv3d.py
 `Conv3dFunction`) is torch's own.
 
+A decoder has two formulations of one function, as in JAX. The generic one
+resizes x, concatenates and runs the basic module. The fused one
+(`Decoder.fused_mode`, `DoubleConv.fused_forward`, ops/upconv.py), which JAX
+takes by default wherever it applies, writes no upsampled or concatenated
+tensor: the norm before the first conv takes per-branch statistics, the conv
+is split by channels, and its up-branch is one K2 conv of the half-res x. A
+3D deconv decoder's kernel-3 / stride-2 transposed conv is likewise one K2
+conv and a depth-to-space (`phase_conv_transpose`) under P3DUNET_DECONV=phase,
+JAX's default; the port's default is cuDNN's transposed conv (ROADMAP F12).
+Both run on the generic path's parameters: the state dict is the same.
+
 Each layer computes in its input's dtype with its float32 parameters cast to
 it, except the norms, which compute in float32 on a float32 copy of a bfloat16
 input and cast back (JAX blocks.py:126-128, 226-236).
@@ -39,6 +50,9 @@ import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.models.se import ChannelSpatialSELayer3D
 from pytorch3dunet_tpu_torch.ops.conv3d import Conv2d, Conv3d, cast_to
+from pytorch3dunet_tpu_torch.ops.upconv import (concat_batch_stats, deconv_mode, fused_decoder_mixed,
+                                               fused_decoder_on, fused_up_concat_conv, fused_up_concat_conv_2d,
+                                               phase_conv_transpose)
 from pytorch3dunet_tpu_torch.parallel.mesh import active_data_axis, all_reduce_sum
 from pytorch3dunet_tpu_torch.parallel.spatial import active_spatial_axis, conv_transpose_sharded
 
@@ -227,6 +241,61 @@ class DoubleConv(nn.Module):
     def forward(self, x):
         return self.SingleConv2(self.SingleConv1(x))
 
+    def fused_forward(self, skip, x):
+        """The decoder's DoubleConv over cat([skip, up2x(x)]) with its first
+        conv unit fused (`fused_single_conv`): JAX blocks.py:586-610
+        `FusedDecoderDoubleConv`, on this module's own parameters."""
+        return self.SingleConv2(fused_single_conv(self.SingleConv1, skip, x))
+
+
+def _batch_norm_fold(bn, skip, xs):
+    """(a_c, b_c) of BatchNorm `bn` over concat([skip, up(xs)]) (channels
+    last): in training the per-branch batch statistics (`concat_batch_stats`),
+    the running statistics moved as torch moves them (the unbiased variance of
+    the concat's N * |skip| values a channel, ROADMAP F2), once a step (not
+    while `recomputing`); in eval the running statistics."""
+    if bn.training:
+        mean, var = concat_batch_stats(skip, xs)
+        if bn.track_running_stats and not getattr(_recompute, "active", False):
+            count = skip[..., 0].numel()
+            with torch.no_grad():
+                bn.num_batches_tracked += 1
+                factor = 1.0 / float(bn.num_batches_tracked) if bn.momentum is None else bn.momentum
+                bn.running_mean.lerp_(mean.detach(), factor)
+                bn.running_var.lerp_(var.detach() * (count / max(count - 1, 1)), factor)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    a_c = torch.rsqrt(var + bn.eps) * bn.weight
+    return a_c, bn.bias - mean * a_c
+
+
+def fused_single_conv(single, skip, x):
+    """SingleConv `single` over cat([skip, up2x(x)]) (NCDHW or NCHW) computed
+    fused (ops/upconv.py `fused_up_concat_conv`): the norm before the conv
+    (GroupNorm, BatchNorm or none) folded into per-branch statistics, the conv
+    split by channels, the up-branch as phase convs of the half-res x; then the
+    modules after the conv as they are. JAX blocks.py:452-535
+    `FusedUpConcatConv1`, on the generic module's parameters (the same state
+    dict keys)."""
+    names = list(single._modules)
+    ci = names.index("conv")
+    conv = single.conv
+    rank = skip.ndim - 2
+    skip_cl, x_cl = skip.movedim(1, -1), x.movedim(1, -1)
+    norm = {}
+    if ci:
+        pre = single[ci - 1]
+        if isinstance(pre, nn.GroupNorm):
+            norm = dict(num_groups=pre.num_groups, gn_scale=pre.weight, gn_bias=pre.bias, eps=pre.eps)
+        else:
+            norm = dict(affine=_batch_norm_fold(pre, skip_cl, x_cl))
+    fused = fused_up_concat_conv if rank == 3 else fused_up_concat_conv_2d
+    kernel = cast_to(conv.weight, skip).permute(*range(2, 2 + rank), 1, 0)
+    y = fused(skip_cl, x_cl, kernel, conv_bias=cast_to(conv.bias, skip), dtype=skip.dtype, **norm).movedim(-1, 1)
+    for module in list(single)[ci + 1:]:
+        y = module(y)
+    return y
+
 
 class ResNetBlock(nn.Module):
     """Residual block (JAX blocks.py:308-368, reference buildingblocks.py:230-288,
@@ -311,11 +380,13 @@ class TransposeConvUpsampling(nn.Module):
     """`upsample.conv_transposed`, a ConvTranspose3d (ConvTranspose2d in 2D)
     with kernel `kernel_size`, stride `scale_factor` and no bias, then a
     nearest resize to the skip's size: the reference's module and keys, and
-    the function of JAX blocks.py:736-810 (`phase_conv_transpose` for kernel 3
-    / stride 2 in 3D, flax `ConvTranspose` with padding (1, 1) on every axis
-    otherwise; both give 2n - 1 voxels from n at kernel 3 / stride 2). The JAX
-    package computes this transposed conv outside any Pallas kernel; here it
-    is cuDNN's."""
+    the function of JAX blocks.py:736-810 (flax `ConvTranspose` with padding
+    (1, 1) on every axis; 2n - 1 voxels from n at kernel 3 / stride 2): the
+    library's transposed conv, or in 3D at kernel 3 / stride 2 under
+    P3DUNET_DECONV=phase (JAX's default; the port's is "xla", ROADMAP F12)
+    `phase_conv_transpose` (ops/upconv.py: one K2 conv with the 8 phase
+    kernels embedded, F = 8 Co, and a depth-to-space; `phase_path`). Under a
+    space mesh it is the sharded deconv (parallel/spatial.py), as in JAX."""
 
     class Upsample(nn.Module):
         def __init__(self, in_channels: int, out_channels: int, kernel_size=3, scale_factor=2, is3d: bool = True):
@@ -324,12 +395,21 @@ class TransposeConvUpsampling(nn.Module):
             self.conv_transposed = deconv(in_channels, out_channels, kernel_size=kernel_size, stride=scale_factor,
                                           padding=1, bias=False)
 
+        def phase_path(self) -> bool:
+            """Whether an unsharded forward takes `phase_conv_transpose` (JAX blocks.py:773-796)."""
+            conv = self.conv_transposed
+            return conv.kernel_size == (3, 3, 3) and conv.stride == (2, 2, 2) and deconv_mode() == "phase"
+
         def forward(self, x, size):
             conv = self.conv_transposed
             mesh = active_spatial_axis()
             if mesh is not None and x.ndim == 5:
                 # a D-slab: 2-plane halo, depth-uncropped deconv, fix-up gather
                 return conv_transpose_sharded(x, cast_to(conv.weight, x), mesh, size)
+            if self.phase_path():
+                # flax's kernel (3, 3, 3, Ci, Co) is torch's weight flipped
+                kernel = cast_to(conv.weight, x).flip(2, 3, 4).permute(2, 3, 4, 0, 1)
+                return resize(phase_conv_transpose(x.movedim(1, -1), kernel).movedim(-1, 1), size, "nearest")
             # flax pads the stride-dilated input by (1, 1) on each axis: torch's
             # padding k - 2 for k >= 2; at k = 1 the output gains a zero on each side
             padding = tuple(max(k - 2, 0) for k in conv.kernel_size)
@@ -365,16 +445,22 @@ def resize(x, size, mode: str):
 
 
 class Decoder(nn.Module):
-    """Upsample to the skip's size, join, basic module: the generic decoder of
-    JAX blocks.py:811-843. `in_channels` are x's (the level below),
-    `out_channels` the skip's and the block's.
+    """Upsample to the skip's size, join, basic module (JAX blocks.py:811-843).
+    `in_channels` are x's (the level below), `out_channels` the skip's and the
+    block's.
 
     `upsample_mode` is one of `UPSAMPLE_MODES`: an interpolation (`resize`),
     'deconv' (`TransposeConvUpsampling` from `in_channels` to `out_channels`
     with kernel `conv_kernel_size` and stride `scale_factor`), or None, which
     joins x as it is (it must have the skip's size already, as under
     `pool_kernel_size: 1`). `concat` joins by `cat([skip, x])`, otherwise by
-    the sum `skip + x`."""
+    the sum `skip + x`.
+
+    Where `fused_mode` says so, the decoder is the JAX package's fused one
+    (`DoubleConv.fused_forward`): no upsampled tensor, no concat, the norm's
+    statistics per branch, the up-branch as phase convs of x; the same
+    parameters and the same function as the generic path, up to fp32
+    reassociation."""
 
     def __init__(self, in_channels: int, out_channels: int, order: str = "gcr", num_groups: int = 8,
                  dropout_prob=0.1, basic_module: str = "DoubleConv", upsample_mode: str | None = "nearest",
@@ -390,9 +476,47 @@ class Decoder(nn.Module):
         self.basic_module = make_basic_module(basic_module, out_channels + upsampled if concat else upsampled,
                                               out_channels, False, order, num_groups, dropout_prob,
                                               conv_kernel_size, padding, 2, is3d)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        rank = 3 if is3d else 2
+        pre = order[:order.index("c")] if "c" in order else None
+        # the conditions of JAX `_fused_path_ok` that the construction fixes
+        self._fusable = (concat and upsample_mode == "nearest" and basic_module == "DoubleConv"
+                         and _per_axis(conv_kernel_size, rank) == (3,) * rank
+                         and _per_axis(padding, rank) == (1,) * rank
+                         and pre in ("", "g", "b") and all(ch in "gbcrle" for ch in order))
+        self._pre_batch_norm = pre == "b"
+
+    def fused_mode(self, skip_shape, x_shape) -> str | None:
+        """'full', 'mixed' or None (the generic path) for a skip and an x of
+        these NC... shapes: JAX blocks.py:681-715 `_fused_path_ok`. Fused when
+        P3DUNET_FUSED_DECODER=1 (the default), the decoder is nearest + concat
+        + DoubleConv, its order's part before the conv is '', 'g' or 'b' and
+        holds only 'gbcrle', kernel 3 and padding 1 on every axis, the leading
+        axis is an exact 2x, and the others are too ('full'), or are not and
+        P3DUNET_FUSED_DECODER_MIXED=1 in 3D ('mixed': x resized in H and W,
+        only the depth phase-folds). Never under a space mesh. Under a data
+        mesh a train-mode BatchNorm before the conv takes the generic path,
+        whose BatchNorm all-reduces its moments (sync BN)."""
+        if not (self._fusable and fused_decoder_on()):
+            return None
+        if skip_shape[2] != 2 * x_shape[2]:
+            return None
+        hw_exact = tuple(skip_shape[3:]) == tuple(2 * s for s in x_shape[3:])
+        if not hw_exact and (len(skip_shape) == 4 or not fused_decoder_mixed()):
+            return None
+        if active_spatial_axis() is not None:
+            return None
+        if self._pre_batch_norm and self.training and active_data_axis() is not None:
+            return None
+        return "full" if hw_exact else "mixed"
 
     def forward(self, encoder_features, x):
         size = encoder_features.shape[2:]
+        mode = self.fused_mode(encoder_features.shape, x.shape)
+        if mode is not None:
+            if mode == "mixed":
+                x = resize(x, (x.shape[2], *size[1:]), "nearest")
+            return self.basic_module.fused_forward(encoder_features, x)
         if self.upsampling is not None:
             x = self.upsampling(x, size)
         elif self.upsample_mode is not None:

@@ -28,6 +28,8 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder, conv_layer, recomputing
+from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, forward_variant
+from pytorch3dunet_tpu_torch.ops.upconv import skipconv_mode, upconv_mode
 from pytorch3dunet_tpu_torch.utils.misc import number_of_features_per_level
 
 # `model.dtype` values of the JAX get_model -> the compute dtype (None: float32)
@@ -154,6 +156,76 @@ class ResidualUNet2D(UNet3D):
     basic_module = "ResNetBlock"
     is3d = False
     default_num_levels = 5
+
+
+def _kernel_convs(block, prefix):
+    """(name, module) of the 3x3x3 pad-1 `Conv3d`s of `block` in the order
+    they run."""
+    return [(f"{prefix}.{name}", m) for name, m in block.named_modules() if isinstance(m, Conv3d) and m.on_kernels]
+
+
+def _reads_raw_input(block) -> bool:
+    """Whether the first conv of encoder 0's `block` reads the model's input
+    as it is (no 1x1 projection and no norm before it), so that a train step
+    computes no input gradient for it."""
+    if isinstance(getattr(block, "conv1", None), nn.Module) and not isinstance(block.conv1, nn.Identity):
+        return False
+    unit = block.SingleConv1 if hasattr(block, "SingleConv1") else block.conv2
+    names = list(unit._modules)
+    return not any(next(unit[i].parameters(), None) is not None for i in range(names.index("conv")))
+
+
+def kernel_conv_plan(model, spatial, space_mesh: bool = False) -> list[tuple[str, tuple, int, str, bool]]:
+    """(name, NDHWC input shape at batch 1, F, forward variant, input gradient)
+    of every 3x3x3 pad-1 conv that one forward of `model` on an input of
+    spatial shape `spatial` runs on the kernels, in order, as the switches are
+    set now: each decoder's `fused_mode` (a fused decoder's first conv is two
+    K2 convs, the skip branch's at the skip's size and the up-branch's wide
+    one at x's, F = 8 Co, or 2 Co depth-only; P3DUNET_UPCONV=phase and
+    P3DUNET_SKIPCONV=strided move one of them to the library), the phase
+    deconv (one K2 conv, F = 8 Co), and `forward_variant` (P3DUNET_TAPFOLD)
+    for the other convs; the pinned ones are "roll" (K2). The last entry says
+    whether a train step computes the conv's input gradient (K3): every conv
+    but one that reads the raw input. `space_mesh`: under a space mesh, where
+    every decoder is the generic one and the deconv the sharded one (the
+    count of launches; the shapes are then those of the unsharded input).
+    2D models run no kernel: []."""
+    if not model.is3d:
+        return []
+    plan = []
+    sizes = []
+    size = tuple(spatial)
+    for i, encoder in enumerate(model.encoders):
+        if encoder.pool_kernel_size is not None:
+            size = tuple(s // k for s, k in zip(size, encoder.pool_kernel_size))
+        sizes.append(size)
+        for j, (name, conv) in enumerate(_kernel_convs(encoder.basic_module, f"encoders.{i}.basic_module")):
+            grad = not (i == 0 and j == 0 and _reads_raw_input(encoder.basic_module))
+            plan.append((name, (1, *size, conv.in_channels), conv.out_channels, forward_variant(conv.out_channels),
+                         grad))
+    levels = len(sizes)
+    for i, decoder in enumerate(model.decoders):
+        skip, x = sizes[levels - 2 - i], sizes[levels - 1 - i]
+        prefix = f"decoders.{i}"
+        if decoder.upsampling is not None and decoder.upsampling.upsample.phase_path() and not space_mesh:
+            plan.append((f"{prefix}.upsampling.upsample.conv_transposed", (1, *x, decoder.in_channels),
+                         8 * decoder.out_channels, "roll", True))
+        mode = None if space_mesh else decoder.fused_mode((1, decoder.out_channels, *skip),
+                                                           (1, decoder.in_channels, *x))
+        convs = _kernel_convs(decoder.basic_module, f"{prefix}.basic_module")
+        if mode is not None:
+            (name, conv), convs = convs[0], convs[1:]
+            fo = conv.out_channels
+            if not (mode == "full" and upconv_mode() == "wide" and skipconv_mode() == "strided"):
+                plan.append((f"{name}[skip]", (1, *skip, decoder.out_channels), fo, "roll", True))
+            if mode == "mixed":
+                plan.append((f"{name}[up]", (1, x[0], *skip[1:], decoder.in_channels), 2 * fo, "roll", True))
+            elif upconv_mode() == "wide":
+                plan.append((f"{name}[up]", (1, *x, decoder.in_channels), 8 * fo, "roll", True))
+        for name, conv in convs:
+            plan.append((name, (1, *skip, conv.in_channels), conv.out_channels, forward_variant(conv.out_channels),
+                         True))
+    return plan
 
 
 _MODELS = {cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3D, UNet2D, ResidualUNet2D)}

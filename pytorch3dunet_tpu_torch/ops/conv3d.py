@@ -27,7 +27,11 @@ The input gradient of this conv is the same conv run on dy with the taps
 flipped and C and F swapped (`conv3d_input_grad`). `Conv3dFunction` is the
 autograd of the conv on NDHWC tensors: its forward is K2 or K1, its input
 gradient K3, its weight gradient `torch.nn.grad.conv3d_weight` (the JAX package
-leaves the weight gradient to XLA, outside any kernel).
+leaves the weight gradient to XLA, outside any kernel). `conv3d` is the
+differentiable entry on NDHWC tensors that the layers call. The fused decoder
+and the phase-decomposed deconv (ops/upconv.py) call it with the forward
+pinned to K2 ("roll"): the JAX package computes those convs with `_as2d`
+directly, never through `Conv3D`, so `P3DUNET_TAPFOLD` does not reach them.
 
 `Conv3d` is the model's 3D conv layer (NCDHW in and out, torch weight layout).
 It runs every 3x3x3 pad-1 conv through the above, and any other kernel size or
@@ -234,7 +238,8 @@ def conv3d_input_grad_reference(dy, w):
 
 class Conv3dFunction(torch.autograd.Function):
     """Autograd of the 3x3x3 pad-1 conv on NDHWC tensors: x (N, D, H, W, C),
-    w (3, 3, 3, C, F), b (F,) or None.
+    w (3, 3, 3, C, F), b (F,) or None, and the forward's `variant` (None:
+    `forward_variant(F)`).
 
     forward: `conv3d_fwd` (on CUDA K2, or K1 by `forward_variant`). backward:
     dx by `conv3d_input_grad` (K3 on CUDA) when x needs a gradient, dw by
@@ -249,10 +254,10 @@ class Conv3dFunction(torch.autograd.Function):
     grad_copies = 0
 
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, variant=None):
         ctx.save_for_backward(x, w)
         ctx.has_bias = b is not None
-        y = conv3d_fwd(x, w, b)
+        y = conv3d_fwd(x, w, b, variant)
         # the plain version (CPU) may return a permuted view of its own result;
         # autograd forbids in-place ops (the ReLU after the conv) on a view
         # made inside a Function
@@ -273,7 +278,20 @@ class Conv3dFunction(torch.autograd.Function):
             dw = dw_torch.permute(2, 3, 4, 1, 0)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = dy.sum((0, 1, 2, 3))
-        return dx, dw, db
+        return dx, dw, db, None
+
+
+def conv3d(x, w, b=None, variant=None):
+    """The 3x3x3 pad-1 conv of NDHWC x (N, D, H, W, C) with w (3, 3, 3, C, F)
+    and b (F,) or None, in x's dtype, differentiable: `Conv3dFunction` when
+    grad is on and a tensor needs one, else `conv3d_fwd`; the plain version
+    inside `plain_conv()`. `variant` pins the forward kernel ("roll": K2);
+    None leaves it to `forward_variant(F)`."""
+    if _force_plain:
+        return conv3d_fwd_reference(x, w, b)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
+        return Conv3dFunction.apply(x, w, b, variant)
+    return conv3d_fwd(x, w, b, variant)
 
 
 class Conv3d(nn.Conv3d):
@@ -284,10 +302,8 @@ class Conv3d(nn.Conv3d):
     3 / padding 1 takes the kernels, any other kernel size or padding, ints or
     per-axis tuples, takes `F.conv3d` (JAX `conv_pallas.supported`). The
     kernels read the NDHWC view of x: a copy when x is not channels-last in
-    memory (`input_copies` counts those copies). With grad enabled and a
-    tensor that needs one, the conv goes through `Conv3dFunction`; otherwise
-    straight to `conv3d_fwd`. Either path computes in x's dtype, with the
-    weights and bias cast to it."""
+    memory (`input_copies` counts those copies), then `conv3d`, in x's dtype
+    with the weights and bias cast to it."""
 
     # layout copies made for the kernel's NDHWC input since the last reset
     input_copies = 0
@@ -320,13 +336,7 @@ class Conv3d(nn.Conv3d):
         # the weights in x's dtype: in a bf16 step the conv's autograd sees
         # bf16 w and b, and the f32 parameters' gradients come back through
         # the cast's own autograd
-        w, b = cast_to(self.weight, x).permute(2, 3, 4, 1, 0), cast_to(self.bias, x)
-        if _force_plain:
-            y = conv3d_fwd_reference(x_cl, w, b)
-        elif torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x_cl, w, b)):
-            y = Conv3dFunction.apply(x_cl, w, b)
-        else:
-            y = conv3d_fwd(x_cl, w, b)
+        y = conv3d(x_cl, cast_to(self.weight, x).permute(2, 3, 4, 1, 0), cast_to(self.bias, x))
         if mesh is not None:
             y = y[:, 1:-1]
         return y.permute(0, 4, 1, 2, 3)

@@ -95,11 +95,11 @@ def test_batchnorm_train_mode_matches_jax(name):
         variables, x)
     bns = {n: m for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
     assert len(bns) == 10
-    # the values each BatchNorm reduces per channel: N x H x W of its input
-    counts = {}
-    for key, bn in bns.items():
-        bn.register_forward_pre_hook(lambda m, args, key=key: counts.__setitem__(key, args[0].numel()
-                                                                                 // args[0].shape[1]))
+    # the values each BatchNorm reduces per channel: N x H x W of its input (a
+    # fused decoder's first norm: of the concat it never materializes), the
+    # plane of its level (32 >> level; decoder i joins level 1 - i)
+    level = {"encoders": lambda i: i, "decoders": lambda i: 1 - i}
+    counts = {key: x.shape[0] * (32 >> level[key.split(".")[0]](int(key.split(".")[1]))) ** 2 for key in bns}
     _, logits = model(torch.from_numpy(np.moveaxis(x, -1, 1)))
     np.testing.assert_allclose(logits.detach().numpy(), np.moveaxis(np.asarray(want_logits), -1, 1), rtol=0,
                                atol=TOL)

@@ -2,8 +2,10 @@
 UNet3D with the same weights, crossed through `state_dict_from_jax`.
 
 The JAX model takes its fused decoder where every level is an exact 2x and
-the generic resize + concat decoder otherwise; the port always runs the
-generic one, so both shapes are held against it.
+the generic resize + concat decoder otherwise; the port makes the same choice
+(models/blocks.py `Decoder.fused_mode`, at its default of
+P3DUNET_FUSED_DECODER), so both shapes are held against it. Each path forced
+on and off is in tests/test_torch_port_upconv.py.
 """
 
 import jax

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.models import blocks
-from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d
+from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d, kernel_conv_plan
 from pytorch3dunet_tpu_torch.ops import conv3d
 from pytorch3dunet_tpu_torch.utils.weights import state_dict_from_jax
 from pytorch3dunet_tpu.models import get_model as jax_get_model
@@ -73,11 +73,13 @@ def test_no_upsampling_matches_jax(name, spatial, upsample):
 AREA_CFG = {**BASE, "name": "UNet2D", "upsample": "area"}
 
 
-def test_area_is_torchs_adaptive_average_pooling():
+def test_area_is_torchs_adaptive_average_pooling(monkeypatch):
     x = torch.from_numpy(np.random.RandomState(3).rand(2, 4, 7, 9).astype(np.float32))
     for size in ((14, 18), (15, 20)):
         torch.testing.assert_close(blocks.resize(x, size, "area"), F.adaptive_avg_pool2d(x, size), rtol=0, atol=0)
-    # at exact 2x every level, 'area' repeats each voxel: the nearest model's output
+    # at exact 2x every level, 'area' repeats each voxel: the nearest model's
+    # output on the generic decoder (the same ops; the fused one sums in another order)
+    monkeypatch.setenv("P3DUNET_FUSED_DECODER", "0")
     area, nearest = get_model(AREA_CFG).eval(), get_model({**AREA_CFG, "upsample": "nearest"}).eval()
     nearest.load_state_dict(area.state_dict())
     xs = torch.rand(1, 1, 16, 16)
@@ -131,8 +133,10 @@ def test_conv3d_dispatch_follows_the_shape(monkeypatch, options, on_kernels):
     monkeypatch.setattr(conv3d.Conv3dFunction, "apply", count("function", apply))
     monkeypatch.setattr(conv3d.F, "conv3d", count("torch", conv))
     logits = model(torch.rand(1, 1, 8, 16, 16))[1]
-    # on the CPU the kernels' plain forward is one F.conv3d each
-    assert calls == {"function": on_kernels, "torch": len(convs)}
+    # on the CPU the kernels' plain forward is one F.conv3d each; a fused
+    # decoder's first conv is two kernel convs (`kernel_conv_plan`)
+    on_path = len(kernel_conv_plan(model, (8, 16, 16)))
+    assert calls == {"function": on_path, "torch": on_path + len(convs) - on_kernels}
     logits.sum().backward()
     assert all(m.weight.grad is not None for m in convs)
 

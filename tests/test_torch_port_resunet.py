@@ -27,7 +27,7 @@ from pytorch3dunet_tpu.utils.torch_interop import save_torch_checkpoint, torch_s
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
 from pytorch3dunet_tpu_torch.models import blocks, se
 from pytorch3dunet_tpu_torch.models.unet import ResidualUNet3D, ResidualUNetSE3D, get_model
-from pytorch3dunet_tpu_torch.ops import conv3d
+from pytorch3dunet_tpu_torch.ops import conv3d, upconv
 from pytorch3dunet_tpu_torch.utils.weights import load_weights, state_dict_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -135,12 +135,20 @@ def test_conv_variant_follows_features_and_switch(monkeypatch, tapfold, grad):
     model = get_model(_cfg("ResidualUNet3D")).train(grad)
     calls = _recorded_variants(model, torch.rand(1, 1, *SHAPES["exact"]), monkeypatch, grad)
     forwards = [c for c in calls if c[1] != "packw"]
-    # 3 levels: encoders 16, 32, 64 and decoders 32, 16, two 3x3x3 convs each
-    assert [f for f, _ in forwards] == [16, 16, 32, 32, 64, 64, 32, 32, 16, 16]
-    for features, variant in forwards:
-        assert variant == ("im2col" if tapfold == "1" and features >= 64 else "roll")
+    # 3 levels: encoders 16, 32, 64 and decoders 32, 16, two 3x3x3 convs each;
+    # before each decoder's, its phase deconv (P3DUNET_DECONV=phase, the
+    # default): one conv with F = 8 Co, pinned to K2 whatever the switch
+    phase = upconv.deconv_mode() == "phase"
+    deconvs = {6: 8 * 32, 9: 8 * 16} if phase else {}
+    convs = [16, 16, 32, 32, 64, 64, 32, 32, 16, 16]
+    for position in sorted(deconvs):
+        convs.insert(position, deconvs[position])
+    assert [f for f, _ in forwards] == convs
+    for position, (features, variant) in enumerate(forwards):
+        pinned = position in deconvs
+        assert variant == ("im2col" if tapfold == "1" and features >= 64 and not pinned else "roll")
     # the input gradient stays on K3 for every conv, whatever the switch
-    assert [v for _, v in calls if v == "packw"] == (["packw"] * 10 if grad else [])
+    assert [v for _, v in calls if v == "packw"] == (["packw"] * len(convs) if grad else [])
 
 
 def test_model_counts_of_the_lightsheet_model():
