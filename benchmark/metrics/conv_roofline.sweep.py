@@ -1,0 +1,8 @@
+"""conv_roofline.sweep: the share of the conv kernels' roofline in the
+traced window (readers.py `conv_roofline`). Moves the gaussian sweep's rate, predict_vox_s."""
+
+from benchmark.readers import conv_roofline
+
+
+def read(window):
+    return conv_roofline(window) if window.kind == "sweep" else None

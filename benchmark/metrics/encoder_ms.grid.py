@@ -1,0 +1,10 @@
+"""encoder_ms.grid: the device time of the kernels launched inside the
+encoder levels' host ranges (forward hooks on `model.encoders[i]`, trace.py),
+per patch forwarded in the traced window, in ms (readers.py `range_ms`).
+Moves the grid sweep's rate, predict_vox_s.grid."""
+
+from benchmark.readers import range_ms
+
+
+def read(window):
+    return range_ms(window, "encoder.") if window.kind == "sweep" else None
