@@ -37,8 +37,7 @@ Phases, each fatal on failure:
      K3's bf16 bound, cuDNN's weight gradient per conv shape
      (TF32 off and on), one train step with the kernels against the plain conv
      (TF32 off and on), voxels/s and peak memory;
-  9. profile: one train step's device time by kernel (torch.profiler) and the
-     device's busy share.
+  9. profile: one train step's device time by kernel (torch.profiler).
 Phases 1-9 run with P3DUNET_TAPFOLD unset: every conv forward is K2. Phases
 11-14 set P3DUNET_TAPFOLD=1, under which every conv with F >= 64 runs its
 forward on the im2col kernel (K1), and unset it after:
@@ -75,7 +74,7 @@ download) on phase 4's volume:
      slab` (2 slabs of 145 planes); (e) one forward of a slab whose decoder
      concat passes 2^31 elements, against the plain conv in depth chunks; wall
      times and Mvoxel/s beside phase 5's host predict_array, peak memory, and
-     the device's busy share over a sweep of (a) (torch.profiler);
+     the device time by kernel of a sweep of (a) (torch.profiler);
  16. the sweep of 15(a) with `model.dtype: bfloat16` (144 bf16 K2 launches)
      against the same bf16 sweep with the plain conv and against 15(a);
  17. ResidualUNet3D in bfloat16 under P3DUNET_TAPFOLD=1, the geometry of
@@ -147,7 +146,7 @@ phases 24-26 assert 0 launches of K1, K2 and K3:
      the first 16 planes; `patch_mode: slab` (24 whole planes a forward),
      plane 0 against its own forward and the grid's cores; one ResidualUNet2D
      forward (5 levels, deconv, sum joins) of 16 tiles; Mvoxel/s, peak memory
-     and the device's busy share;
+     and the device time by kernel;
  26. resources/2DUnet_dsb2018 (UNet2D bcr, f_maps [32, 64, 128]): 4 steps and 1
      validation (BlobsAveragePrecision) at batch 32 of 256x256, every
      BatchNorm's running statistics moved; `DSB2018Predictor.predict_image` on
@@ -671,10 +670,11 @@ def check_kernel(tag, fn, ref, cases, gen, device, phase=3):
     return errors, failed
 
 
-def profile_step(step, step_ms, top=12, tag="9 profile", what="one train step"):
+def profile_step(step, top=12, tag="9 profile", what="one train step"):
     """Device time of one call of `step` under torch.profiler, summed by
-    kernel name: the hand-written kernels, then the largest others, and the
-    device's busy share of `step_ms` (the step's CUDA-event time)."""
+    kernel name: the hand-written kernels, then the largest others. The sum
+    counts overlapping kernels twice, so it is no busy share (the benchmark's
+    `idle_share.*` read that from the union of device intervals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -687,22 +687,20 @@ def profile_step(step, step_ms, top=12, tag="9 profile", what="one train step"):
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
             by_name[event.name] = by_name.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
-    if not busy_ms:
+    kernel_ms = sum(by_name.values())
+    if not kernel_ms:
         log(f"[{tag}] the profiler recorded no device time")
-        return None
-    log(f"[{tag}] {what}: device busy {busy_ms:.2f} ms of {step_ms:.2f} ms "
-        f"({100 * busy_ms / step_ms:.1f}% busy) in {len(by_name)} kernel names")
+        return
+    log(f"[{tag}] {what}: {kernel_ms:.2f} ms of kernel time summed over {len(by_name)} kernel names")
     ours = [name for name in by_name if any(k in name for k in ("conv3d_fwd_kernel", "conv3d_packw_kernel",
                                                                   "conv3d_im2col_kernel"))]
     others = sorted((name for name in by_name if name not in ours), key=by_name.get, reverse=True)
     for name in ours + others[:top]:
-        log(f"[{tag}] {by_name[name]:9.2f} ms {100 * by_name[name] / busy_ms:5.1f}%  {name[:110]}")
+        log(f"[{tag}] {by_name[name]:9.2f} ms {100 * by_name[name] / kernel_ms:5.1f}%  {name[:110]}")
     wgrad_ms = sum(ms for name, ms in by_name.items() if "wgrad" in name.lower())
     if wgrad_ms:
         log(f"[{tag}] cuDNN's weight-gradient kernels (names with 'wgrad'): {wgrad_ms:.2f} ms "
-            f"({100 * wgrad_ms / busy_ms:.1f}% of the busy time)")
-    return busy_ms / step_ms
+            f"({100 * wgrad_ms / kernel_ms:.1f}% of the summed kernel time)")
 
 
 def residual_unet_phases(device, gen, volume, batches):
@@ -943,7 +941,7 @@ def residual_unet_phases(device, gen, volume, batches):
             with torch.inference_mode():
                 model(x0)
 
-        profile_step(forward, fwd_ms, tag="14 resunet profile", what="one ResidualUNet3D patch forward")
+        profile_step(forward, tag="14 resunet profile", what="one ResidualUNet3D patch forward")
         del model, predictor, x0
         torch.cuda.empty_cache()
 
@@ -962,7 +960,7 @@ def residual_unet_phases(device, gen, volume, batches):
         log(f"[14 resunet train step] {TRAIN_PATCH} batch 1, forward + backward + Adam: kernels {step_ms:.2f} ms "
             f"({voxels / step_ms / 1e3:.3f} Mvoxel/s) | plain conv {step_plain_ms:.2f} ms | plain conv TF32 "
             f"{step_plain_tf32_ms:.2f} ms | peak memory {step_peak_gib:.2f} GiB")
-        profile_step(train_step, step_ms, tag="14 resunet profile", what="one ResidualUNet3D train step")
+        profile_step(train_step, tag="14 resunet profile", what="one ResidualUNet3D train step")
         del train_model, optimizer, trainer, inp, target
         torch.cuda.empty_cache()
     finally:
@@ -1133,17 +1131,16 @@ def device_sweep_phases(device, volume, host, res_host_out):
     times = {}
     for tag, fn in (("(a)", sweep_a), ("(b)", sweep_b), ("(c)", sweep_c), ("(d)", sweep_d)):
         times[tag] = timed(fn)
-    busy = profile_step(sweep_a, times["(a)"][0], top=8, tag="15 profile", what="one device sweep (a)")
+    profile_step(sweep_a, top=8, tag="15 profile", what="one device sweep (a)")
     # the streamed sweep uploads each slab from its loader thread
-    profile_step(sweep_c, times["(c)"][0], top=8, tag="15 profile", what="one streamed device sweep (c)")
-    profile_step(sweep_d, times["(d)"][0], top=8, tag="15 profile", what="one slab sweep (d)")
+    profile_step(sweep_c, top=8, tag="15 profile", what="one streamed device sweep (c)")
+    profile_step(sweep_d, top=8, tag="15 profile", what="one slab sweep (d)")
     host_ms = 1e3 * host["wall_s"]
     log(f"[15 sweep] times, median of {SWEEP_RUNS} (CUDA events around the call, upload to download): "
         + " | ".join(f"{tag} {ms:.2f} ms, {mvoxels / ms * 1e3:.3f} Mvoxel/s, peak {gib:.2f} GiB"
                      for tag, (ms, gib) in times.items())
         + f" | phase 5 host predict_array (the grid of (b)) {host_ms:.2f} ms, {mvoxels / host_ms * 1e3:.3f} "
-          f"Mvoxel/s | (d) {len(slab_starts)} slabs of {slab_in} = {np.prod(slab_in) / 1e6:.2f} M padded voxels | "
-          f"device busy over (a): {'not measured' if busy is None else f'{100 * busy:.1f}%'}")
+          f"Mvoxel/s | (d) {len(slab_starts)} slabs of {slab_in} = {np.prod(slab_in) / 1e6:.2f} M padded voxels")
 
     # 16. UNet3D in bf16
     model16 = in_bf16(model, MODEL)
@@ -1161,7 +1158,7 @@ def device_sweep_phases(device, volume, host, res_host_out):
         f"{times['(a)'][0]:.2f} ms), peak {gib_16:.2f} GiB (f32 {times['(a)'][1]:.2f})")
     check(err_plain <= BF16_VS_PLAIN_TOL, f"bf16 sweep differs from its plain-conv sweep by {err_plain}")
     check(err_f32 <= BF16_VS_F32_TOL, f"bf16 sweep differs from the f32 sweep by {err_f32}")
-    profile_step(sweep_16, ms_16, top=8, tag="16 profile", what="one bf16 device sweep (a)")
+    profile_step(sweep_16, top=8, tag="16 profile", what="one bf16 device sweep (a)")
     del model, model16, out_a, out_16, out_16_plain
     torch.cuda.empty_cache()
 
@@ -1459,7 +1456,7 @@ def bf16_train_phases(device, batches, f32_step_ms):
         f"({f32_step_ms / step_ms:.2f}x) | with the device augmentation at the config's probabilities "
         f"{augmented_ms:.2f} ms, the augmenter alone {augmenter_ms:.2f} ms ({100 * augmenter_ms / augmented_ms:.1f}% "
         f"of the augmented step) | peak memory {peak_gib:.2f} GiB")
-    profile_step(train_step, step_ms, top=10, tag="19 profile", what="one bf16 UNet3D train step")
+    profile_step(train_step, top=10, tag="19 profile", what="one bf16 UNet3D train step")
     del model, optimizer, trainer, augmenter
     torch.cuda.empty_cache()
 
@@ -1662,7 +1659,7 @@ def recipe_phases(device, volume, batches):
     d_voxels = np.prod(DENOISING_PATCH)
     log(f"[22 denoising train step] {DENOISING_PATCH} batch 1, SmoothL1, bf16: {step_ms:.2f} ms "
         f"({d_voxels / step_ms / 1e3:.3f} Mvoxel/s), peak {peak_gib:.2f} GiB")
-    profile_step(step, step_ms, top=10, tag="22 profile", what="one bf16 denoising train step")
+    profile_step(step, top=10, tag="22 profile", what="one bf16 denoising train step")
     del step, model, optimizer, trainer, inp, tgt
     torch.cuda.empty_cache()
 
@@ -1855,7 +1852,7 @@ def two_d_phases(device, smi):
     pixels = BATCH_2D * np.prod(PATCH_2D)
     log(f"[24 train 2D step] batch {BATCH_2D} x {PATCH_2D}, BCEDice, Adam, f32 (TF32 off): {step_ms:.2f} ms "
         f"({pixels / step_ms / 1e3:.3f} Mpixel/s), peak {peak:.2f} GiB ({smi})")
-    profile_step(step, step_ms, top=10, tag="24 profile", what="one 2D confocal train step")
+    profile_step(step, top=10, tag="24 profile", what="one 2D confocal train step")
     state_2d = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del trainer, model, optimizer, inp, tgt, train, val, step
     torch.cuda.empty_cache()
@@ -1920,7 +1917,7 @@ def two_d_phases(device, smi):
         f"{grid_peak:.2f} GiB) | slab sweep {slab_ms:.2f} ms ({voxels / slab_ms / 1e3:.2f} Mvoxel/s, peak "
         f"{slab_peak:.2f} GiB) | the host loop on 16 planes {host_ms:.2f} ms "
         f"({np.prod(head.shape) / host_ms / 1e3:.2f} Mvoxel/s) ({smi})")
-    profile_step(grid_sweep, grid_ms, top=8, tag="25 profile", what="one 2D grid sweep")
+    profile_step(grid_sweep, top=8, tag="25 profile", what="one 2D grid sweep")
     del grid, slab, out, out_slab, host, dev, sweep_obj, direct
     torch.cuda.empty_cache()
     res_model = get_model({**MODEL_2D, "name": "ResidualUNet2D"})
@@ -2899,7 +2896,7 @@ def parallel_phase(device, batches, volume, step_ms, smi):
             plain_ms = [timed_ms(lambda: unsharded._train_fns(*whole), runs=3)]
             sharded_ms = timed_ms(lambda: sharded._train_fns(*slabs), runs=3)
             plain_ms.append(timed_ms(lambda: unsharded._train_fns(*whole), runs=3))
-            profile_step(lambda: sharded._train_fns(*slabs), sharded_ms, tag="30 profile",
+            profile_step(lambda: sharded._train_fns(*slabs), tag="30 profile",
                          what="one D-sharded f32 step at world size 1")
             log(f"[30 parallel] (d) {smi}: one f32 train step (Adam) of {TRAIN_PATCH}, the trainer's: D-sharded at "
                 f"world size 1 (NCCL, zero halos, every conv on D + 2 planes) {sharded_ms:.2f} ms | unsharded "
@@ -3131,8 +3128,8 @@ def decoder_phase(device, batch, smi):
                 f"{name}={old} {means['generic']:.2f} ms (medians in turns {runs}); launches "
                 f"{launches[f'{tag}_new_forward{suffix}']} vs {launches[f'{tag}_generic_forward{suffix}']}; max|d| "
                 f"{', '.join(f'{p} {e:.3e}' for p, e in errs.items())} ({smi})")
-            for path, value in (("new", new), ("generic", old)) if tag == "unet3d" else ():
-                switched(name, value, lambda: profile_step(fwd, means[path], top=8, tag=f"31 {tag} profile",
+            for value in (new, old) if tag == "unet3d" else ():
+                switched(name, value, lambda: profile_step(fwd, top=8, tag=f"31 {tag} profile",
                                                            what=f"one {tag} forward{suffix}, {name}={value}"))
             del m
         del model, ref, f32_out
@@ -3499,7 +3496,7 @@ def main():
         with torch.inference_mode():
             model(x0)
 
-    profile_step(forward, fwd_ms, tag="5 profile", what="one UNet3D patch forward")
+    profile_step(forward, tag="5 profile", what="one UNet3D patch forward")
 
     walls = []
     for _ in range(RUNS):
@@ -3692,7 +3689,7 @@ def main():
         f"({voxels / step_plain_tf32_ms / 1e3:.3f} Mvoxel/s) | peak memory {step_peak_gib:.2f} GiB")
 
     # 9. where the time of one train step goes, by device kernel
-    profile_step(train_step, step_ms)
+    profile_step(train_step)
     del model, optimizer, trainer, inp, target
     torch.cuda.empty_cache()
 

@@ -21,7 +21,7 @@ from scipy.ndimage import zoom
 
 from pytorch3dunet_tpu_torch.datasets.loader import ConcatDataset, DataLoader
 from pytorch3dunet_tpu_torch.parallel import distributed
-from pytorch3dunet_tpu_torch.utils.misc import get_class, get_logger
+from pytorch3dunet_tpu_torch.utils.misc import get_class, get_logger, span
 
 logger = get_logger("Dataset")
 
@@ -381,16 +381,15 @@ def default_prediction_collate(batch: list) -> Any:
 
 def calculate_stats(img, skip: bool = False) -> dict[str, Any]:
     """Percentile/mean/std statistics over the whole volume (datasets/utils.py:499-515)."""
-    if not skip:
-        stats = {
+    if skip:
+        return {"pmin": None, "pmax": None, "mean": None, "std": None}
+    with span("p3d.stats"):
+        return {
             "pmin": np.percentile(img, 1),
             "pmax": np.percentile(img, 99.6),
             "mean": np.mean(img),
             "std": np.std(img),
         }
-    else:
-        stats = {"pmin": None, "pmax": None, "mean": None, "std": None}
-    return stats
 
 
 def mirror_pad(image: np.ndarray, padding_shape: tuple[int, int, int]) -> np.ndarray:

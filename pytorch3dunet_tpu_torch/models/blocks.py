@@ -55,6 +55,7 @@ from pytorch3dunet_tpu_torch.ops.upconv import (concat_batch_stats, deconv_mode,
                                                phase_conv_transpose)
 from pytorch3dunet_tpu_torch.parallel.mesh import active_data_axis, all_reduce_sum
 from pytorch3dunet_tpu_torch.parallel.spatial import active_spatial_axis, conv_transpose_sharded
+from pytorch3dunet_tpu_torch.utils.misc import span
 
 # the upsample modes of a Decoder (JAX unet.py `_resolve_upsample`); None: no resize
 UPSAMPLE_MODES = ("nearest", "linear", "bilinear", "trilinear", "area", "deconv", None)
@@ -87,18 +88,19 @@ class GroupNorm(_Float32Norm, nn.GroupNorm):
     rank normalizes with the global ones (JAX blocks.py:104-118)."""
 
     def forward(self, x):
-        mesh = active_spatial_axis()
-        if mesh is None:
-            return super().forward(x)
-        x32 = x.float() if x.dtype == torch.bfloat16 else x
-        n, c = x32.shape[:2]
-        groups = x32.unflatten(1, (self.num_groups, c // self.num_groups))
-        dims = tuple(range(2, groups.ndim))
-        count = groups[0, 0].numel() * mesh.size
-        _, var, centered, shape = _moments(groups, dims, count, mesh)
-        y = (centered * torch.rsqrt(var + self.eps).view(shape)).flatten(1, 2)
-        affine = (1, c) + (1,) * (x32.ndim - 2)
-        return (y * self.weight.view(affine) + self.bias.view(affine)).to(x.dtype)
+        with span("p3d.norm.group"):
+            mesh = active_spatial_axis()
+            if mesh is None:
+                return super().forward(x)
+            x32 = x.float() if x.dtype == torch.bfloat16 else x
+            n, c = x32.shape[:2]
+            groups = x32.unflatten(1, (self.num_groups, c // self.num_groups))
+            dims = tuple(range(2, groups.ndim))
+            count = groups[0, 0].numel() * mesh.size
+            _, var, centered, shape = _moments(groups, dims, count, mesh)
+            y = (centered * torch.rsqrt(var + self.eps).view(shape)).flatten(1, 2)
+            affine = (1, c) + (1,) * (x32.ndim - 2)
+            return (y * self.weight.view(affine) + self.bias.view(affine)).to(x.dtype)
 
 
 # set while `model.remat` recomputes a level in backward (`recomputing`)

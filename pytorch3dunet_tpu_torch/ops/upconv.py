@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.ops.conv3d import conv3d
+from pytorch3dunet_tpu_torch.utils.misc import span
 
 # the phases (a, b, c) of a 2x upsample in the order of the channel blocks
 _PHASES = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
@@ -279,14 +280,15 @@ def _apply_norm_affine(skip, xs, affine, dtype):
 def _normalize(skip, xs, num_groups, gn_scale, gn_bias, affine, dtype, eps, factor):
     """The norm folded into a per-channel affine and applied; the conv inputs
     and dtype as JAX casts them."""
-    if num_groups is not None:
-        mean_c, inv_c = concat_group_stats(skip, xs, num_groups, eps, factor=factor)
-        a_c = inv_c * gn_scale[None]
-        affine = (a_c, gn_bias[None] - mean_c * a_c)
-    if affine is not None:
-        skip, xs = _apply_norm_affine(skip, xs, affine, dtype)
-    dtype = dtype if dtype is not None else skip.dtype
-    return skip.to(dtype), xs.to(dtype), dtype
+    with span("p3d.norm.fused"):
+        if num_groups is not None:
+            mean_c, inv_c = concat_group_stats(skip, xs, num_groups, eps, factor=factor)
+            a_c = inv_c * gn_scale[None]
+            affine = (a_c, gn_bias[None] - mean_c * a_c)
+        if affine is not None:
+            skip, xs = _apply_norm_affine(skip, xs, affine, dtype)
+        dtype = dtype if dtype is not None else skip.dtype
+        return skip.to(dtype), xs.to(dtype), dtype
 
 
 # rank 2 (UNet2D): the same identities with the 4 phases (a, b), b fastest

@@ -8,7 +8,7 @@ serves `DeviceSlidingWindowPredictor.predict_array` (the sweep on the device,
 predictor.py) over a stdlib HTTP server:
 
     GET  /healthz            -> {"status": "ok"}, the liveness probe (no token needed)
-    GET  /info               -> model, geometry and device metadata (JSON)
+    GET  /info               -> model, geometry and device metadata, and the request counters (JSON)
     POST /predict            -> body: a .npy volume, (D, H, W) or (C, D, H, W)
                                 response: .npy (Cout, D, H, W) float32 probabilities
     POST /predict?output=segmentation
@@ -35,12 +35,20 @@ the EMA weights preferred).
   default (the JAX server's default is 24): on an H100 it answered neither
   requests of one 512x512 tile nor of 4 planes of 1024x1024 sooner than
   the direct path (PERF.md, Findings).
+- `GET /info` counts the requests served (`requests_served`), the
+  micro-batcher's dispatches (`batching`), and under `stages` the cumulative
+  `seconds` and `count` of each stage of a request: `lock_wait` (the wait for
+  the session's lock), `predict` (`predict_array` under the lock; a
+  micro-batched sweep counts once), `decode` (the handler's `.npy` load of the
+  body) and `encode` (its `.npy` save of the reply). A stage that raised is
+  not counted.
 - `--token` (or `P3DUNET_SERVE_TOKEN`) requires `Authorization: Bearer
   <token>` on every endpoint but /healthz; a non-loopback `--host` needs it or
   `--insecure`. A body over `--max-request-mb` gets 413 before it is read.
 """
 
 import argparse
+import contextlib
 import hmac
 import io
 import json
@@ -48,6 +56,7 @@ import os
 import queue
 import sys
 import threading
+import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
@@ -67,6 +76,8 @@ from pytorch3dunet_tpu_torch.utils.weights import load_weights
 logger = get_logger("UNet3DServe")
 
 _LOOPBACK_HOSTS = ("127.0.0.1", "localhost", "::1", "")
+# the stages of a request that GET /info times (the module docstring)
+STAGES = ("lock_wait", "predict", "decode", "encode")
 
 
 class _MicroBatcher:
@@ -177,6 +188,10 @@ class ServingSession:
         self.max_request_bytes = int(max_request_bytes)
         self._lock = threading.Lock()
         self._n_served = 0
+        # cumulative [seconds, count] of each stage of a request (`stage`), under their own lock: the handler
+        # threads decode and encode concurrently
+        self._stages = {name: [0.0, 0] for name in STAGES}
+        self._stages_lock = threading.Lock()
         # cross-request micro-batching: 2D models only (z is a batch axis
         # there); percentile normalization has no exact host/none split
         self._batcher = None
@@ -222,12 +237,35 @@ class ServingSession:
                 crop = tuple(slice(0, s) for s in spatial)
         return volume, crop
 
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Adds the seconds of the block to the stage `name` of GET /info and counts it, once it has ended
+        without raising."""
+        start = time.perf_counter()
+        yield
+        self._count_stage(name, time.perf_counter() - start)
+
+    def _count_stage(self, name: str, seconds: float):
+        with self._stages_lock:
+            self._stages[name][0] += seconds
+            self._stages[name][1] += 1
+
+    def _predict_locked(self, volume: np.ndarray, normalize, stats: dict, requests: int) -> np.ndarray:
+        """`predict_array` of `volume` under the session's lock, for `requests` requests; times the wait for
+        the lock and the call."""
+        start = time.perf_counter()
+        with self._lock:
+            locked = time.perf_counter()
+            probs = self.predictor.predict_array(volume, self.patch_shape, self.stride_shape, self.halo_shape,
+                                                 normalize=normalize, stats=stats)
+            self._n_served += requests
+            self._count_stage("lock_wait", locked - start)
+            self._count_stage("predict", time.perf_counter() - locked)
+        return probs
+
     def _predict_direct(self, volume: np.ndarray, stats: dict) -> np.ndarray:
         volume, crop = self._pad_to_multiple(volume)
-        with self._lock:
-            probs = self.predictor.predict_array(volume, self.patch_shape, self.stride_shape, self.halo_shape,
-                                                 normalize=self.normalize, stats=stats)
-            self._n_served += 1
+        probs = self._predict_locked(volume, self.normalize, stats, 1)
         if crop is not None:
             probs = probs[(slice(None),) + crop]
         return probs
@@ -255,10 +293,7 @@ class ServingSession:
         depths = [a.shape[zaxis] for a in arrs]
         stacked = np.concatenate(arrs, axis=zaxis)
         stacked, crop = self._pad_to_multiple(stacked, axes=(1, 2))
-        with self._lock:
-            probs = self.predictor.predict_array(stacked, self.patch_shape, self.stride_shape, self.halo_shape,
-                                                 normalize=dev_mode, stats={})
-            self._n_served += len(items)
+        probs = self._predict_locked(stacked, dev_mode, {}, len(items))
         if crop is not None:
             probs = probs[(slice(None), slice(None)) + crop[1:]]
         out, z = [], 0
@@ -280,6 +315,8 @@ class ServingSession:
         logger.info("Warmup done")
 
     def info(self) -> dict:
+        with self._stages_lock:
+            stages = {name: {"seconds": seconds, "count": count} for name, (seconds, count) in self._stages.items()}
         devices = [str(self.device)]
         if self.device.type == "cuda":
             devices = [f"{self.device} ({torch.cuda.get_device_name(self.device)})"]
@@ -292,6 +329,7 @@ class ServingSession:
             "pad_to_multiple": list(self.pad_to_multiple) if self.pad_to_multiple else None,
             "devices": devices,
             "requests_served": self._n_served,
+            "stages": stages,
             "max_request_bytes": self.max_request_bytes,
             "auth": self.token is not None,
             "batching": None if self._batcher is None else {
@@ -375,10 +413,12 @@ class _Handler(BaseHTTPRequestHandler):
                                             f"{self.session.max_request_bytes}-byte limit"})
             return
         try:
-            volume = np.load(io.BytesIO(self.rfile.read(length)), allow_pickle=False)
-            if volume.ndim not in (3, 4):
-                raise ValueError(f"expected a (D, H, W) or (C, D, H, W) volume, got shape {volume.shape}")
-            volume = np.asarray(volume, dtype=np.float32)
+            body = self.rfile.read(length)
+            with self.session.stage("decode"):
+                volume = np.load(io.BytesIO(body), allow_pickle=False)
+                if volume.ndim not in (3, 4):
+                    raise ValueError(f"expected a (D, H, W) or (C, D, H, W) volume, got shape {volume.shape}")
+                volume = np.asarray(volume, dtype=np.float32)
         except Exception as e:  # noqa: BLE001 - malformed input -> 400
             self._reply_json(400, {"error": str(e)})
             return
@@ -392,9 +432,11 @@ class _Handler(BaseHTTPRequestHandler):
             logger.exception("prediction failed")
             self._reply_json(500, {"error": str(e)})
             return
-        buf = io.BytesIO()
-        np.save(buf, pred)
-        self._reply(200, buf.getvalue(), "application/octet-stream")
+        with self.session.stage("encode"):
+            buf = io.BytesIO()
+            np.save(buf, pred)
+            body = buf.getvalue()
+        self._reply(200, body, "application/octet-stream")
 
 
 def make_server(session: ServingSession, host: str = "127.0.0.1", port: int = 8000) -> ThreadingHTTPServer:

@@ -84,7 +84,7 @@ import numpy as np
 import torch
 
 from pytorch3dunet_tpu_torch.metrics import device_metric_fn, get_evaluation_metric
-from pytorch3dunet_tpu_torch.utils.misc import RunningAverage, get_logger
+from pytorch3dunet_tpu_torch.utils.misc import RunningAverage, get_logger, span
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.datasets.utils import get_train_loaders
 from pytorch3dunet_tpu_torch.losses import get_loss_criterion
@@ -238,7 +238,9 @@ class UNetTrainer:
         self._profiler = None
         self._ckpt_executor = None
         self._ckpt_future = None
-        self._step_voxels = RunningAverage()
+        # the voxels of the updates since the last log, and the time of that log (before the first: of the first
+        # update's start): the logged throughput is their quotient
+        self._log_voxels, self._log_clock = 0, None
 
         logger.info(f"eval_score_higher_is_better: {eval_score_higher_is_better}")
         self.best_eval_score = float("-inf") if eval_score_higher_is_better else float("+inf")
@@ -361,30 +363,32 @@ class UNetTrainer:
         through the device augmenter, a target without a channel axis with one
         added for it and taken away after; then a 2D model's batch loses its
         singleton z (JAX trainer.py:440-465)."""
-        inp = torch.as_tensor(np.asarray(raw)).to(self.device)
-        target = torch.as_tensor(np.asarray(target)).to(self.device)
-        has_channel = target.ndim == inp.ndim
-        if augment and self.device_augmenter is not None:
-            inp, target = self.device_augmenter(inp, target if has_channel else target[:, None],
-                                                self.augment_generators)
-            target = target if has_channel else target[:, 0]
-        if is_model_2d(self.model):
-            if inp.shape[2] != 1:
-                raise ValueError(f"a 2D model trains on patches of depth 1, got a batch of shape {tuple(inp.shape)}")
-            inp, target = inp[:, :, 0], target[:, :, 0] if has_channel else target[:, 0]
-        if self.spatial_sharding:
-            # this rank's D-slab of the batch every rank read alike
-            if self.mesh is None:
-                self.mesh = choose_space_mesh(inp.shape[2], len(self.model.encoders),
-                                              min_local=spatial_min_local(self.model),
-                                              pool=spatial_pool_d(self.model))
-                logger.info(f"Spatial mesh: patch D axis sharded over {self.mesh.size} rank(s)")
-            inp, target = shard_spatial_batch(self.mesh, (inp, target))
-        elif self.mesh is None and self.world > 1:
-            # each rank holds an equal part of the global batch (the loaders' shard)
-            self.mesh = choose_data_mesh(self.world * inp.shape[0])
-            logger.info(f"Data-parallel mesh: {self.mesh.size} ranks")
-        return inp, target
+        with span("p3d.trainer.prepare_batch"):
+            inp = torch.as_tensor(np.asarray(raw)).to(self.device)
+            target = torch.as_tensor(np.asarray(target)).to(self.device)
+            has_channel = target.ndim == inp.ndim
+            if augment and self.device_augmenter is not None:
+                inp, target = self.device_augmenter(inp, target if has_channel else target[:, None],
+                                                    self.augment_generators)
+                target = target if has_channel else target[:, 0]
+            if is_model_2d(self.model):
+                if inp.shape[2] != 1:
+                    raise ValueError(f"a 2D model trains on patches of depth 1, got a batch of shape "
+                                     f"{tuple(inp.shape)}")
+                inp, target = inp[:, :, 0], target[:, :, 0] if has_channel else target[:, 0]
+            if self.spatial_sharding:
+                # this rank's D-slab of the batch every rank read alike
+                if self.mesh is None:
+                    self.mesh = choose_space_mesh(inp.shape[2], len(self.model.encoders),
+                                                  min_local=spatial_min_local(self.model),
+                                                  pool=spatial_pool_d(self.model))
+                    logger.info(f"Spatial mesh: patch D axis sharded over {self.mesh.size} rank(s)")
+                inp, target = shard_spatial_batch(self.mesh, (inp, target))
+            elif self.mesh is None and self.world > 1:
+                # each rank holds an equal part of the global batch (the loaders' shard)
+                self.mesh = choose_data_mesh(self.world * inp.shape[0])
+                logger.info(f"Data-parallel mesh: {self.mesh.size} ranks")
+            return inp, target
 
     def _build_accum_fns(self):
         """(grads_step, apply_step, zeros) of an update of `grad_accum_steps`
@@ -458,11 +462,11 @@ class UNetTrainer:
         for group in self._train_groups():
             logger.info(f"Training iteration [{self.num_iterations}/{self.max_num_iterations}]. "
                         f"Epoch [{self.num_epochs}/{self.max_num_epochs - 1}]")
-            start = time.perf_counter()
+            if self._log_clock is None:
+                self._log_clock = time.perf_counter()
             raw, target_host, inp, target, probs = self._update(group, train_losses)
-            # N * D * H * W of the loader batches over the update's wall time
-            voxels = sum(int(np.prod(np.shape(r))) // np.shape(r)[1] for r, _ in group)
-            self._step_voxels.update(voxels / (time.perf_counter() - start))
+            # N * D * H * W of the loader batches
+            self._log_voxels += sum(int(np.prod(np.shape(r))) // np.shape(r)[1] for r, _ in group)
             if self.ema is not None:
                 self._ema_step()
             batch_size = inp.shape[0]
@@ -516,15 +520,18 @@ class UNetTrainer:
                 # the first batch chose the mesh
                 self._train_fns = self._build_train_step() if single else self._build_accum_fns()
             if single:
-                loss, probs = self._train_fns(inp, target)
+                with span("p3d.trainer.step"):
+                    loss, probs = self._train_fns(inp, target)
             else:
                 grads_step, apply_step, zeros = self._train_fns
                 if i == 0:
                     zeros()
-                loss, probs = grads_step(inp, target)
+                with span("p3d.trainer.step"):
+                    loss, probs = grads_step(inp, target)
             train_losses.update(loss.item(), inp.shape[0])
         if not single:
-            apply_step()
+            with span("p3d.trainer.step"):
+                apply_step()
         return raw, target_host, inp, target, probs
 
     @torch.no_grad()
@@ -561,12 +568,15 @@ class UNetTrainer:
             # the target the network saw: after device augmentation the host
             # batch is the one before it
             train_eval_scores.update(float(self.eval_criterion(out_np, tar_np)), batch_size)
+        now = time.perf_counter()
+        voxels_per_sec = self._log_voxels / (now - self._log_clock)
+        self._log_voxels, self._log_clock = 0, now
         logger.info(f"Training stats. Loss: {train_losses.avg}. Evaluation score: {train_eval_scores.avg}. "
-                    f"Throughput: {self._step_voxels.avg / 1e6:.2f} Mvoxels/s")
+                    f"Throughput: {voxels_per_sec / 1e6:.2f} Mvoxels/s")
         self._log_stats("train", train_losses.avg, train_eval_scores.avg)
         if self.writer is None:
             return
-        self.writer.add_scalar("train_voxels_per_sec", self._step_voxels.avg, self.num_iterations)
+        self.writer.add_scalar("train_voxels_per_sec", voxels_per_sec, self.num_iterations)
         if self.device_augmenter is not None:
             # the batch the network saw, not the host one before augmentation
             raw_log, target_log = inp.cpu().numpy(), target.cpu().numpy()

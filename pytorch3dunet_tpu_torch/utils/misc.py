@@ -1,14 +1,18 @@
-"""Shared utilities of the port: logging, the class registry, small helpers.
+"""Shared utilities of the port: logging, the class registry, the profiler
+spans, small helpers.
 
 The port's own copy of pytorch3dunet_tpu/utils/misc.py (logger,
 RunningAverage, number_of_features_per_level, get_class); parity targets in the
 reference: pytorch3dunet/unet3d/utils.py:68-112.
 """
 
+import contextlib
 import importlib
 import logging
 import os
 import sys
+
+import torch
 
 _LOG_FMT = "%(asctime)s [%(threadName)s] %(levelname)s %(name)s - %(message)s"
 _loggers: dict[str, logging.Logger] = {}
@@ -50,6 +54,22 @@ class RunningAverage:
     @property
     def avg(self):
         return self.sum / self.count if self.count else 0.0
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range `name` in the trace of a running `torch.profiler` (the
+    benchmark's `--trace 1` run, the trainer's `profile_dir`): a
+    `record_function`, so it lands on the profiler's clock beside the kernels
+    and gets their device span. With no profiler on the calling thread, or
+    while `torch.export` / `torch.compile` trace the caller, a shared null
+    context: one C call, where a bare `record_function` costs microseconds
+    even with the profiler off. The port's spans are all named `p3d.*`."""
+    if torch.autograd._profiler_enabled() and not torch.compiler.is_compiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def number_of_features_per_level(init_channel_number: int, num_levels: int) -> list:
