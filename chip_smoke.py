@@ -241,6 +241,16 @@ the generic ones, each switch set for the call and restored after:
      kernel; then the rule of each default: the new path is the port's
      default if no reading of it is slower than the generic one's by more
      than 2%.
+ 32. the GroupNorm kernel (csrc/group_norm.cu through ops/group_norm.py
+     `group_norm_op`, which every GroupNorm forward without a gradient takes
+     on the card) at every GroupNorm input of one 112x234x234 forward of the
+     confocal UNet3D (f32) and the light-sheet ResidualUNet3D (bf16), the
+     inputs as the forward hands them on (channels-last after K2, NC after
+     cuDNN or a concat): against its plain version and float64, with torch's
+     own F.group_norm gap to float64 as the tolerance (printed); a repeat
+     bitwise equal; y's strides x's; its time beside its bound (two reads
+     and one write of x at 3.35 TB/s), the plain version and one
+     F.group_norm call; its launch pairs a forward.
 Every launch gate of phases 4-31 is derived, not written down: `plan_launches`
 counts the kernel convs of `kernel_conv_plan` (models/unet.py) for the model,
 its input shape and the switches as they are set (the fused decoders' two
@@ -255,7 +265,8 @@ launches, error, and the bound `bound_ms`: the larger of bytes at the H100's
 kernels K1, K2 and K3, which also carry the f32 FFMA figure at 67 TFLOP/s as
 `bound_ffma_ms` and their ptxas registers, spills and shared memory; for all
 three also the bf16 time beside the bf16 bound at 989 TFLOP/s and one cuDNN
-call in bf16, for K2 the MMAs issued over the useful ones); the last line is
+call in bf16, for K2 the MMAs issued over the useful ones; for the GroupNorm
+kernel its memory bound, plain and F.group_norm times per model); the last line is
 {"ok": true, "device": {...}}.
 
 Needs torch, numpy and scipy; not jax, h5py or yaml, and nothing of the JAX package.
@@ -510,15 +521,19 @@ def with_tf32(fn):
 
 
 def reset_launches():
-    from pytorch3dunet_tpu_torch.ops import conv3d
+    from pytorch3dunet_tpu_torch.ops import conv3d, group_norm
 
     conv3d.reset_launches()
+    group_norm.reset_launches()
 
 
 def launches_by_dtype():
-    from pytorch3dunet_tpu_torch.ops import conv3d
+    """The launches of each hand kernel since the last reset, by dtype: the
+    conv kernels' and the GroupNorm kernel's launch pairs."""
+    from pytorch3dunet_tpu_torch.ops import conv3d, group_norm
 
-    return {name: dict(counts) for name, counts in conv3d.launches_by_dtype.items()}
+    return {**{name: dict(counts) for name, counts in conv3d.launches_by_dtype.items()},
+            group_norm.KERNEL: dict(group_norm.launches_by_dtype)}
 
 
 def count_launches(launches, path, fn):
@@ -531,10 +546,11 @@ def count_launches(launches, path, fn):
     return out
 
 
-def expect_launches(launches, path, k2=(0, 0), k3=(0, 0), k1=(0, 0)):
-    """Fails unless `path` launched K2, K3 and K1 (f32, bf16) times as given."""
+def expect_launches(launches, path, k2=(0, 0), k3=(0, 0), k1=(0, 0), gn=(0, 0)):
+    """Fails unless `path` launched K2, K3, K1 and GroupNorm pairs (f32,
+    bf16) times as given."""
     want = {"conv3d_fwd": dict(zip(("f32", "bf16"), k2)), "conv3d_packw": dict(zip(("f32", "bf16"), k3)),
-            "conv3d_im2col": dict(zip(("f32", "bf16"), k1))}
+            "conv3d_im2col": dict(zip(("f32", "bf16"), k1)), "group_norm": dict(zip(("f32", "bf16"), gn))}
     check(launches[path] == want, f"{path} launched {launches[path]}, expected {want}")
 
 
@@ -566,23 +582,26 @@ def dgrad_shapes(model, patch):
     return [(name, (*shape[:4], f), shape[4]) for name, shape, f, _, grad in kernel_conv_plan(model, patch) if grad]
 
 
-# the K2 and K1 launches of one forward and the K3 launches of one train step's backward
-Launches = collections.namedtuple("Launches", "k2 k3 k1")
+# the K2 and K1 launches of one forward, the K3 launches of one train step's
+# backward, and the GroupNorm launch pairs of one forward without a gradient
+# (a forward that needs one, and every forward under a space mesh, launches none)
+Launches = collections.namedtuple("Launches", "k2 k3 k1 gn")
 
 
 def plan_launches(model, patch_in, space_mesh=False):
     """`Launches` of `model` (or a model config) on a patch of spatial shape
-    `patch_in`, derived from `kernel_conv_plan` under the switches as they are
-    set now (the Decoder's fused choice, P3DUNET_DECONV, P3DUNET_TAPFOLD), the
-    generic decoders under a space mesh. Every launch gate of phases 4-31
-    reads it, so a change of default changes the gates with it."""
-    from pytorch3dunet_tpu_torch.models.unet import get_model, kernel_conv_plan
+    `patch_in`, derived from `kernel_conv_plan` and `group_norm_plan` under
+    the switches as they are set now (the Decoder's fused choice,
+    P3DUNET_DECONV, P3DUNET_TAPFOLD), the generic decoders under a space mesh.
+    Every launch gate of phases 4-31 reads it, so a change of default changes
+    the gates with it."""
+    from pytorch3dunet_tpu_torch.models.unet import get_model, group_norm_plan, kernel_conv_plan
 
     if isinstance(model, dict):
         model = get_model(dict(model))
     plan = kernel_conv_plan(model, patch_in, space_mesh)
     return Launches(sum(v == "roll" for *_, v, _ in plan), sum(grad for *_, grad in plan),
-                    sum(v == "im2col" for *_, v, _ in plan))
+                    sum(v == "im2col" for *_, v, _ in plan), 0 if space_mesh else len(group_norm_plan(model, patch_in)))
 
 
 def randomize_group_norms(model, gen):
@@ -708,7 +727,6 @@ def residual_unet_phases(device, gen, volume, batches):
     and train (and one ResidualUNetSE3D forward) at full width with
     P3DUNET_TAPFOLD=1, and their times. Returns what the kernels line needs."""
     from pytorch3dunet_tpu_torch.models.unet import get_model
-    from pytorch3dunet_tpu_torch.ops import conv3d
     from pytorch3dunet_tpu_torch.ops.conv3d import (conv3d_fwd, conv3d_fwd_reference, conv3d_input_grad,
                                                     conv3d_input_grad_reference, plain_conv)
     from pytorch3dunet_tpu_torch.predictor import StandardPredictor
@@ -763,16 +781,16 @@ def residual_unet_phases(device, gen, volume, batches):
         model = model.to(device).eval()
         predictor = StandardPredictor(model, None, RES_MODEL["out_channels"], device)
         patches = list(predictor.patches(volume, PATCH, STRIDE, HALO, TRANSFORMER))
-        per_forward = {"conv3d_fwd": per_patch.k2, "conv3d_packw": 0, "conv3d_im2col": per_patch.k1}
-        reset_launches()
+        launches = {}
         start = time.perf_counter()
-        out = predictor.predict_array(volume, PATCH, STRIDE, HALO, TRANSFORMER)
+        out = count_launches(launches, "resunet_predict", lambda: predictor.predict_array(volume, PATCH, STRIDE, HALO,
+                                                                                          TRANSFORMER))
         first_s = time.perf_counter() - start
-        predict_launches = dict(conv3d.launches)
-        expected = {k: v * len(patches) for k, v in per_forward.items()}
         log(f"[11 resunet predict] predict_array {VOLUME} -> {out.shape} in {first_s:.2f} s (first call); "
-            f"{len(patches)} patches of {patch_in}, launches {predict_launches} (expected {expected})")
-        check(predict_launches == expected, f"ResidualUNet3D predict launched {predict_launches}, expected {expected}")
+            f"{len(patches)} patches of {patch_in}, launches {launches['resunet_predict']} (a forward: "
+            f"{per_patch.k1} K1, {per_patch.k2} K2, {per_patch.gn} GroupNorm)")
+        expect_launches(launches, "resunet_predict", k2=(per_patch.k2 * len(patches), 0),
+                        k1=(per_patch.k1 * len(patches), 0), gn=(per_patch.gn * len(patches), 0))
         check(out.shape == (RES_MODEL["out_channels"], *VOLUME), f"output shape {out.shape}")
         check(np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1, f"output in [{out.min()}, {out.max()}]")
         x0 = torch.from_numpy(patches[0][0][None]).to(device)
@@ -791,17 +809,16 @@ def residual_unet_phases(device, gen, volume, batches):
         se_model = get_model({**RES_MODEL, "name": "ResidualUNetSE3D"})
         randomize_group_norms(se_model, torch.Generator().manual_seed(SEED))
         se_model = se_model.to(device).eval()
-        reset_launches()
         with torch.inference_mode():
-            se_probs = se_model(x0)[0]
-            se_launches = dict(conv3d.launches)
+            se_probs = count_launches(launches, "resunet_se_forward", lambda: se_model(x0)[0])
             with plain_conv():
                 se_plain = se_model(x0)[0]
         err = (se_probs - se_plain).abs().max().item()
         finite = bool(torch.isfinite(se_probs).all()) and 0 <= se_probs.min().item() <= se_probs.max().item() <= 1
-        log(f"[12 resunet-se] one {patch_in} forward: launches {se_launches} (expected {per_forward}); "
+        se_n = plan_launches(se_model, patch_in)
+        log(f"[12 resunet-se] one {patch_in} forward: launches {launches['resunet_se_forward']}; "
             f"kernel vs plain max|d| = {err:.3e} (tol {FORWARD_TOL}); finite in [0, 1]: {finite}")
-        check(se_launches == per_forward, f"ResidualUNetSE3D launched {se_launches}, expected {per_forward}")
+        expect_launches(launches, "resunet_se_forward", k2=(se_n.k2, 0), k1=(se_n.k1, 0), gn=(se_n.gn, 0))
         check(finite and err <= FORWARD_TOL, f"ResidualUNetSE3D forward: finite {finite}, max|d| {err}")
         del se_model, se_probs, se_plain
 
@@ -831,21 +848,17 @@ def residual_unet_phases(device, gen, volume, batches):
                 return loss
 
             trainer.loss_criterion = recording_criterion
-            reset_launches()
             start = time.perf_counter()
-            trainer.fit()
-            torch.cuda.synchronize()
+            count_launches(launches, "resunet_train", trainer.fit)
             fit_s = time.perf_counter() - start
-            train_launches = dict(conv3d.launches)
             trainer.loss_criterion = criterion
         n_val = RES_TRAIN_STEPS // RES_VALIDATE_AFTER
-        expected = {"conv3d_fwd": per_step.k2 * (RES_TRAIN_STEPS + n_val),
-                    "conv3d_im2col": per_step.k1 * (RES_TRAIN_STEPS + n_val),
-                    "conv3d_packw": per_step.k3 * RES_TRAIN_STEPS}
         log(f"[13 resunet train] fit: {RES_TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validation in {fit_s:.2f} s; "
-            f"launches {train_launches} (expected {expected}); losses {', '.join(f'{v:.5f}' for v in losses)}; "
-            f"best val ARand {trainer.best_eval_score:.5f}")
-        check(train_launches == expected, f"ResidualUNet3D train launched {train_launches}, expected {expected}")
+            f"launches {launches['resunet_train']} (GroupNorm only in the validation); losses "
+            f"{', '.join(f'{v:.5f}' for v in losses)}; best val ARand {trainer.best_eval_score:.5f}")
+        expect_launches(launches, "resunet_train", k2=(per_step.k2 * (RES_TRAIN_STEPS + n_val), 0),
+                        k1=(per_step.k1 * (RES_TRAIN_STEPS + n_val), 0), k3=(per_step.k3 * RES_TRAIN_STEPS, 0),
+                        gn=(per_step.gn * n_val, 0))
         check(len(losses) == RES_TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
         check(losses[-1] < losses[0], f"ResidualUNet3D loss did not fall: {losses}")
 
@@ -967,8 +980,7 @@ def residual_unet_phases(device, gen, volume, batches):
         os.environ.pop("P3DUNET_TAPFOLD", None)
         torch.backends.cudnn.deterministic = False
 
-    return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "predict_launches": predict_launches,
-            "train_launches": train_launches, "predict_out": out,
+    return {"errors": errors, "errors_k2": errors_k2, "errors_k3": errors_k3, "launches": launches, "predict_out": out,
             "k1_ms": sums["k1_ms"], "k1_plain_ms": sums["plain_ms"], "k1_plain_tf32_ms": sums["plain_tf32_ms"],
             "k1_library_ms": sums["library_ms"], "k2_same_ms": sums["k2_ms"], "k1_count": len(k1_times),
             "k1_bound": summed_bound([(shape, f, True) for _, shape, f in k1_shapes], tc_bound),
@@ -1016,8 +1028,8 @@ def device_sweep_phases(device, volume, host, res_host_out):
     def counted(path, fn):
         return count_launches(launches, path, fn)
 
-    def expect(path, k2=(0, 0), k1=(0, 0)):
-        expect_launches(launches, path, k2=k2, k1=k1)
+    def expect(path, k2=(0, 0), k1=(0, 0), gn=(0, 0)):
+        expect_launches(launches, path, k2=k2, k1=k1, gn=gn)
 
     def probs_ok(tag, out):
         ok = out.shape == (1, *VOLUME) and np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
@@ -1035,12 +1047,13 @@ def device_sweep_phases(device, volume, host, res_host_out):
 
     # 15. UNet3D in f32
     model = seeded(MODEL)
-    n_conv = plan_launches(model, patch_in).k2
+    n = plan_launches(model, patch_in)
+    n_conv = n.k2
     n_a, n_b = grid(TPU_STRIDE), grid(STRIDE)
     check((n_a, n_b) == (9, 4), f"{n_a} and {n_b} patches")
     sweep_a = sweep(model, TPU_STRIDE, TPU_BLEND)
     out_a = counted("device_sweep", sweep_a)
-    expect("device_sweep", k2=(n_conv * n_a, 0))
+    expect("device_sweep", k2=(n_conv * n_a, 0), gn=(n.gn * n_a, 0))
     probs_ok("15(a)", out_a)
     with plain_conv():
         out_a_plain = sweep_a()
@@ -1053,7 +1066,7 @@ def device_sweep_phases(device, volume, host, res_host_out):
 
     sweep_b = sweep(model, STRIDE, "assign")
     out_b = counted("device_sweep_assign", sweep_b)
-    expect("device_sweep_assign", k2=(n_conv * n_b, 0))
+    expect("device_sweep_assign", k2=(n_conv * n_b, 0), gn=(n.gn * n_b, 0))
     err_b = np.abs(out_b - host["out"]).max()
     log(f"[15 sweep] (b) assign, stride {STRIDE}: {n_b} patches, launches {launches['device_sweep_assign']}; "
         f"vs phase 4's host predict_array max|d| = {err_b:.3e} (tol {SWEEP_VS_HOST_TOL})")
@@ -1064,7 +1077,7 @@ def device_sweep_phases(device, volume, host, res_host_out):
     budget = 160 * padded_plane
     sweep_c = sweep(model, TPU_STRIDE, TPU_BLEND, max_device_voxels=budget)
     out_c = counted("device_sweep_streamed", sweep_c)
-    expect("device_sweep_streamed", k2=(n_conv * n_a, 0))
+    expect("device_sweep_streamed", k2=(n_conv * n_a, 0), gn=(n.gn * n_a, 0))
     err_c = np.abs(out_c - out_a).max()
     log(f"[15 sweep] (c) (a) streamed, max_device_voxels {budget} ({budget // padded_plane} padded planes of "
         f"{VOLUME[0] + 2 * HALO[0]}): vs (a) max|d| = {err_c:.3e} (tol {STREAMED_TOL})")
@@ -1076,7 +1089,8 @@ def device_sweep_phases(device, volume, host, res_host_out):
     check((slab_patch, len(slab_starts)) == ((145, 170, 340), 2), f"slab plan {slab_patch} x {len(slab_starts)}")
     sweep_d = sweep(model, TPU_STRIDE, TPU_BLEND, patch_mode="slab")
     out_d = counted("device_sweep_slab", sweep_d)
-    expect("device_sweep_slab", k2=(plan_launches(model, slab_in).k2 * len(slab_starts), 0))
+    n_slab = plan_launches(model, slab_in)
+    expect("device_sweep_slab", k2=(n_slab.k2 * len(slab_starts), 0), gn=(n_slab.gn * len(slab_starts), 0))
     probs_ok("15(d)", out_d)
     del out_d
 
@@ -1146,7 +1160,7 @@ def device_sweep_phases(device, volume, host, res_host_out):
     model16 = in_bf16(model, MODEL)
     sweep_16 = sweep(model16, TPU_STRIDE, TPU_BLEND)
     out_16 = counted("device_sweep_bf16", sweep_16)
-    expect("device_sweep_bf16", k2=(0, n_conv * n_a))
+    expect("device_sweep_bf16", k2=(0, n_conv * n_a), gn=(0, n.gn * n_a))
     probs_ok("16", out_16)
     with plain_conv():
         out_16_plain = sweep_16()
@@ -1166,15 +1180,15 @@ def device_sweep_phases(device, volume, host, res_host_out):
     os.environ["P3DUNET_TAPFOLD"] = "1"
     try:
         res32 = seeded(RES_MODEL)
-        k2, _, k1 = plan_launches(res32, patch_in)
+        n_res = plan_launches(res32, patch_in)
         out32 = counted("resunet_device_sweep", sweep(res32, STRIDE, "assign"))
-        expect("resunet_device_sweep", k2=(k2 * n_b, 0), k1=(k1 * n_b, 0))
+        expect("resunet_device_sweep", k2=(n_res.k2 * n_b, 0), k1=(n_res.k1 * n_b, 0), gn=(n_res.gn * n_b, 0))
         err_host = np.abs(out32 - res_host_out).max()
         check(err_host <= SWEEP_VS_HOST_TOL, f"ResidualUNet3D sweep differs from phase 11's host loop by {err_host}")
         res16 = in_bf16(res32, RES_MODEL)
         sweep_17 = sweep(res16, STRIDE, "assign")
         out_17 = counted("resunet_device_sweep_bf16", sweep_17)
-        expect("resunet_device_sweep_bf16", k2=(0, k2 * n_b), k1=(0, k1 * n_b))
+        expect("resunet_device_sweep_bf16", k2=(0, n_res.k2 * n_b), k1=(0, n_res.k1 * n_b), gn=(0, n_res.gn * n_b))
         probs_ok("17", out_17)
         with plain_conv():
             out_17_plain = sweep_17()
@@ -1403,8 +1417,8 @@ def bf16_train_phases(device, batches, f32_step_ms):
     host_batch = (raw, np.ascontiguousarray(target[:, 1:]))
     launches = {}
 
-    def expect(path, k2=(0, 0), k3=(0, 0), k1=(0, 0)):
-        expect_launches(launches, path, k2, k3, k1)
+    def expect(path, k2=(0, 0), k3=(0, 0), k1=(0, 0), gn=(0, 0)):
+        expect_launches(launches, path, k2, k3, k1, gn)
 
     # 19. UNet3D, the confocal _tpu train config
     config = {"manual_seed": SEED, "device": "cuda", "model": {**MODEL, "dtype": "bfloat16"}, **TRAIN_SECTIONS,
@@ -1434,7 +1448,7 @@ def bf16_train_phases(device, batches, f32_step_ms):
     # (c) the trainer's own fit with augmentation: 6 steps and 1 validation
     trainer = fit_with_augmentation(config, host_batch, val_batch, TRAIN_STEPS, TRAIN_STEPS, "train_bf16_augmented",
                                     "19 bf16 train", launches)
-    expect("train_bf16_augmented", k2=(0, n.k2 * (TRAIN_STEPS + 1)), k3=(0, n.k3 * TRAIN_STEPS))
+    expect("train_bf16_augmented", k2=(0, n.k2 * (TRAIN_STEPS + 1)), k3=(0, n.k3 * TRAIN_STEPS), gn=(0, n.gn))
     # times: the bf16 step, the augmented step and the augmenter's share
     augmenter, gens = trainer.device_augmenter, trainer.augment_generators
     label = torch.from_numpy(host_batch[1]).to(device)
@@ -1553,7 +1567,7 @@ def recipe_phases(device, volume, batches):
                                     "multiclass_train_bf16_augmented", "21 multiclass train", launches,
                                     prepare=record_twin)
     expect_launches(launches, "multiclass_train_bf16_augmented", k2=(0, n.k2 * (RECIPE_STEPS + 1)),
-                    k3=(0, n.k3 * RECIPE_STEPS))
+                    k3=(0, n.k3 * RECIPE_STEPS), gn=(0, n.gn))
     check(len(twin_calls) == 1, f"the validation called the MeanIoU twin {len(twin_calls)} times")
     probs_v, target_v, twin_score = twin_calls[0]
     host_score = MeanIoU()(probs_v.cpu().numpy(), target_v.cpu().numpy())
@@ -1650,7 +1664,7 @@ def recipe_phases(device, volume, batches):
                                     "denoising_train_bf16_augmented", "22 denoising train", launches,
                                     prepare=record_twin)
     expect_launches(launches, "denoising_train_bf16_augmented", k2=(0, n.k2 * (RECIPE_STEPS + 1)),
-                    k3=(0, n.k3 * RECIPE_STEPS))
+                    k3=(0, n.k3 * RECIPE_STEPS), gn=(0, n.gn))
     check(len(used) == 1 and math.isfinite(used[0].item()), f"the PSNR twin gave {used}")
     log(f"[22 denoising train] spec: paired {names} (RandomRotate stays on the host); validation PSNR twin "
         f"{used[0].item():.4f} dB")
@@ -1681,7 +1695,8 @@ def recipe_phases(device, volume, batches):
     probs = count_launches(launches, "multiclass_device_sweep", sweep)
     n_patches = len(SliceBuilder._build_slices(np.broadcast_to(np.float32(0), VOLUME), PATCH, STRIDE))
     patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
-    expect_launches(launches, "multiclass_device_sweep", k2=(plan_launches(model, patch_in).k2 * n_patches, 0))
+    n = plan_launches(model, patch_in)
+    expect_launches(launches, "multiclass_device_sweep", k2=(n.k2 * n_patches, 0), gn=(n.gn * n_patches, 0))
     seg = predictor._to_segmentation(probs)
     check(probs.shape == (3, *VOLUME) and np.isfinite(probs).all(), f"multiclass probabilities {probs.shape}")
     check(np.array_equal(seg, torch.from_numpy(probs).argmax(0).numpy()), "segmentation != argmax of the sweep")
@@ -1788,11 +1803,12 @@ def two_d_phases(device, smi):
             fit_s = time.perf_counter() - start
             trainer.loss_criterion = criterion
             check(Path(checkpoint_dir, "last_checkpoint.pytorch").exists(), f"{path}: no checkpoint written")
-        expect_launches(launches, path)
+        # the steps need gradients; the validation's forward takes the GroupNorm kernel (none in bcr)
+        expect_launches(launches, path, gn=(plan_launches(config["model"], val[0].shape[-2:]).gn, 0))
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[{tag}] create_trainer fit: 4 steps of {train[0].shape} + 1 validation in {fit_s:.2f} s, peak "
             f"{peak:.2f} GiB; losses {', '.join(f'{v:.5f}' for v in losses)}; best {trainer.best_eval_score:.5f}; "
-            f"launches {launches[path]} (no hand kernel on a 2D path)")
+            f"launches {launches[path]} (no conv kernel on a 2D path)")
         check(len(losses) == 4 and all(math.isfinite(v) for v in losses), f"{path}: losses {losses}")
         return trainer, criterion
 
@@ -1872,7 +1888,10 @@ def two_d_phases(device, smi):
         return grid.predict_array(volume, patch, patch, halo, normalize="standardize", stats=stats)
 
     out = count_launches(launches, "unet2d_device_sweep", grid_sweep)
-    expect_launches(launches, "unet2d_device_sweep")
+    # 16 tiles a forward, each halo'd
+    tile = tuple(p + 2 * h for p, h in zip(patch[1:], halo[1:]))
+    n_tiles = VOLUME_2D[0] * math.prod(v // p for v, p in zip(VOLUME_2D[1:], patch[1:]))
+    expect_launches(launches, "unet2d_device_sweep", gn=(plan_launches(model, tile).gn * n_tiles // 16, 0))
     (sweep_obj,) = grid._sweeps.values()
     check(sweep_obj.patch_batch == 16 and out.shape == (1, *VOLUME_2D) and np.isfinite(out).all(),
           f"2D sweep: patch_batch {sweep_obj.patch_batch}, output {out.shape}")
@@ -1891,7 +1910,10 @@ def two_d_phases(device, smi):
         return slab.predict_array(volume, patch, patch, halo, normalize="standardize", stats=stats)
 
     out_slab = count_launches(launches, "unet2d_device_sweep_slab", slab_sweep)
-    expect_launches(launches, "unet2d_device_sweep_slab")
+    # whole halo'd planes, _planned_patch_batch a forward
+    plane_in = tuple(v + 2 * h for v, h in zip(VOLUME_2D[1:], halo[1:]))
+    slab_forwards = -(-VOLUME_2D[0] // slab._planned_patch_batch)
+    expect_launches(launches, "unet2d_device_sweep_slab", gn=(plan_launches(model, plane_in).gn * slab_forwards, 0))
     check(slab._planned_patch_batch == min(24, VOLUME_2D[0]) and np.isfinite(out_slab).all(),
           f"the 2D slab plan took {slab._planned_patch_batch} planes a forward")
     plane = mirror_pad(((volume[:1] - stats["mean"]) / stats["std"]).astype(np.float32), halo)
@@ -1932,7 +1954,7 @@ def two_d_phases(device, smi):
             return res_model(tiles)[0]
 
     probs = count_launches(launches, "resunet2d_forward", res_forward)
-    expect_launches(launches, "resunet2d_forward")
+    expect_launches(launches, "resunet2d_forward", gn=(plan_launches(res_model, tiles.shape[2:]).gn, 0))
     check(probs.shape == (16, 1, *tiles.shape[2:]) and torch.isfinite(probs).all().item(),
           f"ResidualUNet2D output {tuple(probs.shape)}")
     res_ms = timed_ms(res_forward)
@@ -1982,6 +2004,7 @@ def two_d_phases(device, smi):
         model, None, 1, device)
     images = [blob_images(rs, 1, size)[0] for size in DSB_SIZES]
     results = count_launches(launches, "dsb_predict", lambda: [padded.predict_image(img) for img in images])
+    # bcr: BatchNorm, no GroupNorm
     expect_launches(launches, "dsb_predict")
     worst_pad, rows = 0.0, []
     for img, probs in zip(images, results):
@@ -2038,7 +2061,8 @@ def options_phase(device, batch, smi):
 
         path = f"options_{key}_forward"
         probs = count_launches(launches, path, forward)
-        expect_launches(launches, path, k2=(plan_launches(model, TRAIN_PATCH).k2, 0))
+        n = plan_launches(model, TRAIN_PATCH)
+        expect_launches(launches, path, k2=(n.k2, 0), gn=(n.gn, 0))
         check(on_kernels == (14 if key != "anisotropic" else 0) and torch.isfinite(probs).all().item(),
               f"{key}: {on_kernels} conv layers on the kernels")
         with plain_conv():
@@ -2258,9 +2282,10 @@ def breadth_phase(device, batches, smi):
             resumed, rest_losses, rest_s = run(resume_dir, 6, "breadth_tpu_resumed_fit")
         finally:
             torch.backends.cudnn.deterministic = False
-        # 2 microbatches an update, n.k2 bf16 K2 and n.k3 bf16 K3 each; a validation n.k2 K2
-        expect_launches(launches, "breadth_tpu_full_fit", k2=(0, 12 * n.k2 + n.k2), k3=(0, 12 * n.k3))
-        expect_launches(launches, "breadth_tpu_stopped_fit", k2=(0, 8 * n.k2 + n.k2), k3=(0, 8 * n.k3))
+        # 2 microbatches an update, n.k2 bf16 K2 and n.k3 bf16 K3 each; a validation n.k2 K2 and n.gn GroupNorm
+        expect_launches(launches, "breadth_tpu_full_fit", k2=(0, 12 * n.k2 + n.k2), k3=(0, 12 * n.k3), gn=(0, n.gn))
+        expect_launches(launches, "breadth_tpu_stopped_fit", k2=(0, 8 * n.k2 + n.k2), k3=(0, 8 * n.k3),
+                        gn=(0, n.gn))
         expect_launches(launches, "breadth_tpu_resumed_fit", k2=(0, 4 * n.k2), k3=(0, 4 * n.k3))
         state = load_checkpoint(Path(resume_dir) / "last_checkpoint.pytorch")
         names = [n for n, _ in stopped.model.named_parameters()]
@@ -2358,7 +2383,7 @@ def serving_phase(device, volume, smi):
     from pytorch3dunet_tpu_torch.convert import convert_checkpoint
     from pytorch3dunet_tpu_torch.export import export_model, load_exported
     from pytorch3dunet_tpu_torch.models.unet import get_model
-    from pytorch3dunet_tpu_torch.ops import build, conv3d
+    from pytorch3dunet_tpu_torch.ops import build, conv3d, group_norm
     from pytorch3dunet_tpu_torch.ops.conv3d import plain_conv
     from pytorch3dunet_tpu_torch.serve import ServingSession, make_server
     from pytorch3dunet_tpu_torch.utils.weights import jax_checkpoint_bytes, load_jax_checkpoint
@@ -2394,8 +2419,9 @@ def serving_phase(device, volume, smi):
             return model(((x - mean) / max(std, 1e-10)).movedim(-1, 1))[0].movedim(1, -1)
 
     probs = count_launches(launches, "export_eager", lambda: eager(raw[1]))
-    n_conv = plan_launches(model, EXPORT_PATCH).k2
-    expect_launches(launches, "export_eager", k2=(n_conv, 0))
+    n_export = plan_launches(model, EXPORT_PATCH)
+    n_conv = n_export.k2
+    expect_launches(launches, "export_eager", k2=(n_conv, 0), gn=(n_export.gn, 0))
     with plain_conv():
         err = (probs - eager(raw[1])).abs().max().item()
     log(f"[29 op] one eager UNet3D forward of x{tuple(raw[1].shape)} through the op: launches "
@@ -2416,16 +2442,22 @@ def serving_phase(device, volume, smi):
                                 normalize="standardize", stats={"mean": mean, "std": std})
             export_s = time.perf_counter() - start
             exported = load_exported(artifact)
-            check(meta["custom_ops"] == [conv3d.OP_NAME] and exported.meta["dtype"] == ("bfloat16" if dtype else
-                                                                                        "float32"),
-                  f"artifact meta {exported.meta}")
+            check(meta["custom_ops"] == [conv3d.OP_NAME, group_norm.OP_NAME]
+                  and exported.meta["dtype"] == ("bfloat16" if dtype else "float32"), f"artifact meta {exported.meta}")
+            # every GroupNorm module call of the traced forward is a call of the op, which launches the kernel
+            # at run time
+            gn_calls = sum(str(node.target) == "pytorch3dunet_tpu_torch.group_norm_fwd.default"
+                           for node in exported.program.graph.nodes)
+            check(gn_calls == n_export.gn > 0, f"{dtype_name} artifact: {gn_calls} GroupNorm op calls in its graph, "
+                                               f"{n_export.gn} GroupNorm module calls a forward")
             errs = {}
             path = "export" if dtype is None else "export_bf16"
             for n, x in raw.items():
                 with torch.no_grad():
                     got = count_launches(launches, f"{path}_batch{n}", lambda: exported.module(x))
                 want = eager(x, dtype)
-                expect_launches(launches, f"{path}_batch{n}", k2=(0, n_conv) if dtype else (n_conv, 0))
+                expect_launches(launches, f"{path}_batch{n}", k2=(0, n_conv) if dtype else (n_conv, 0),
+                                gn=(0, gn_calls) if dtype else (gn_calls, 0))
                 check(got.shape == want.shape == (n, *EXPORT_PATCH, 1), f"artifact output {tuple(got.shape)}")
                 errs[n] = (got - want).abs().max().item()
                 check(errs[n] <= EXPORT_TOL, f"{dtype_name} artifact at batch {n} differs from the eager model by "
@@ -2435,7 +2467,8 @@ def serving_phase(device, volume, smi):
                 artifact_ms = timed_ms(lambda: exported.module(raw[1]))
             eager_ms = timed_ms(lambda: eager(raw[1], dtype))
             log(f"[29 export] {dtype_name} UNet3D, standardize inside, patch {EXPORT_PATCH}, symbolic batch: export "
-                f"{export_s:.2f} s, artifact {artifact.stat().st_size / 1e6:.1f} MB; {n_conv} K2 a forward inside it "
+                f"{export_s:.2f} s, artifact {artifact.stat().st_size / 1e6:.1f} MB; {n_conv} K2 and {gn_calls} "
+                f"GroupNorm launch pairs a forward inside it "
                 f"(batch 1 {launches[path]['conv3d_fwd']}, batch 2 {launches[path + '_batch2']['conv3d_fwd']}); "
                 f"against the eager model max|d| batch 1 {errs[1]:.3e}, batch 2 {errs[2]:.3e} (tol {EXPORT_TOL}); "
                 f"forward at batch 1 {artifact_ms:.2f} ms against eager {eager_ms:.2f} ms (median of {RUNS}) "
@@ -2495,7 +2528,8 @@ def serving_phase(device, volume, smi):
             served = count_launches(launches, "serve", lambda: post_npy(base, volume))
             n_patches = math.prod(-(-v // s) for v, s in zip(VOLUME, STRIDE))
             patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
-            expect_launches(launches, "serve", k2=(plan_launches(model, patch_in).k2 * n_patches, 0))
+            n_serve = plan_launches(model, patch_in)
+            expect_launches(launches, "serve", k2=(n_serve.k2 * n_patches, 0), gn=(n_serve.gn * n_patches, 0))
 
             def direct():
                 return session.predictor.predict_array(volume, PATCH, STRIDE, HALO, normalize=session.normalize,
@@ -2589,9 +2623,15 @@ def serving_phase(device, volume, smi):
                 finally:
                     batcher.submit = submit
 
+            # how the requests coalesce decides the forwards: count them
+            forwards = []
+            hook = session.model.register_forward_hook(lambda *_: forwards.append(None))
             reset_launches()
-            results, n_batched = held(planes)
-            torch.cuda.synchronize()
+            try:
+                results, n_batched = held(planes)
+                torch.cuda.synchronize()
+            finally:
+                hook.remove()
             launches["serve_2d"] = launches_by_dtype()
             batching = dict(session.info()["batching"])
             single, single_batched = held(mixes["1x512^2"])
@@ -2615,7 +2655,9 @@ def serving_phase(device, volume, smi):
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    expect_launches(launches, "serve_2d")
+    tile = tuple(p + 2 * h for p, h in zip(PATCH_2D_TEST[1:], HALO_2D[1:]))
+    expect_launches(launches, "serve_2d", gn=(plan_launches(session.model, tile).gn * len(forwards), 0))
+    check(forwards, "the 2D requests ran no forward")
     err = max(np.abs(got - want).max() for got, want in zip(results + single,
                                                               expected["4x1024^2"] + expected["1x512^2"]))
     wall = {key: statistics.median(times) for key, times in walls.items()}
@@ -2980,11 +3022,12 @@ def parallel_phase(device, batches, volume, step_ms, smi):
         # the D-sharded step and slab take the generic decoders; the data-parallel step and the grid sweep not
         sharded_n, dp_n = plan_launches(MODEL, TRAIN_PATCH, space_mesh=True), plan_launches(MODEL, TRAIN_PATCH)
         patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
-        sweep_k2 = 2 * plan_launches(MODEL, patch_in).k2
-        for path, k2, k3 in (("sharded", sharded_n.k2, sharded_n.k3), ("dp", dp_n.k2, dp_n.k3),
-                             ("sweep", sweep_k2, 0), ("coop", sharded_n.k2, 0)):
+        # 2 patches a rank in the grid sweep; a space mesh takes the all-reduced GroupNorm, never the kernel
+        sweep_n = plan_launches(MODEL, patch_in)
+        for path, k2, k3, gn in (("sharded", sharded_n.k2, sharded_n.k3, 0), ("dp", dp_n.k2, dp_n.k3, 0),
+                                 ("sweep", 2 * sweep_n.k2, 0, 2 * sweep_n.gn), ("coop", sharded_n.k2, 0, 0)):
             launches[f"{path}_rank{rank}"] = res[f"{path}_launches"]
-            expect_launches(launches, f"{path}_rank{rank}", k2=(k2, 0), k3=(k3, 0))
+            expect_launches(launches, f"{path}_rank{rank}", k2=(k2, 0), k3=(k3, 0), gn=(gn, 0))
         gate(res["sharded_grads"], grads_plain, grads64,
              f"(b) rank {rank} of the trainer's D-sharded step over gloo, local D 40")
         gate(res["dp_grads"], dp_plain, dp64, f"(b) rank {rank} of the trainer's data-parallel step of 2 x 1 patches")
@@ -3107,7 +3150,7 @@ def decoder_phase(device, batch, smi):
                 n = switched(name, value, lambda: plan_launches(m, patch_in))
                 want = (n.k2, 0) if dtype is None else (0, n.k2)
                 want1 = (n.k1, 0) if dtype is None else (0, n.k1)
-                expect_launches(launches, key, k2=want, k1=want1)
+                expect_launches(launches, key, k2=want, k1=want1, gn=(n.gn, 0) if dtype is None else (0, n.gn))
             if dtype is None:
                 errs = {p: (o - ref).abs().max().item() for p, o in outs.items()}
                 check(max(errs.values()) <= FORWARD_TOL,
@@ -3321,6 +3364,133 @@ def decoder_phase(device, batch, smi):
     return launches, {"rows": rows, "errors_k2": errors, "errors_k3": errors_k3}
 
 
+# phase 32: every GroupNorm input of one 112x234x234 forward of each model, the
+# kernel against its plain version and float64. Its tolerance is torch's own
+# GroupNorm gap to float64 on the same inputs, as the port called it before
+# (F.group_norm in float32; a bf16 input through a float32 copy, rounded once),
+# the largest over the phase's inputs of each dtype: the kernel is held no
+# looser than torch. bf16 outputs are compared with the float64 result rounded
+# once to bf16
+GN_MODELS = (("UNet3D f32", MODEL, None), ("ResidualUNet3D bf16", RES_MODEL, "bfloat16"))
+
+
+def group_norm_inputs(model, x):
+    """(module, copy of its input) of every GroupNorm module call of one
+    forward of `model` on x, in order, and the forward's GroupNorm launch pairs."""
+    from pytorch3dunet_tpu_torch.models.blocks import GroupNorm
+    from pytorch3dunet_tpu_torch.ops import group_norm
+
+    calls = []
+
+    def record(module, args):
+        calls.append((module, args[0].clone(memory_format=torch.preserve_format)))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules() if isinstance(m, GroupNorm)]
+    try:
+        before = group_norm.launches
+        with torch.inference_mode():
+            model(x)
+        torch.cuda.synchronize()
+        launches = group_norm.launches - before
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return calls, launches
+
+
+def group_norm_phase(device, smi):
+    """Phase 32: the GroupNorm kernel (csrc/group_norm.cu through
+    `group_norm_op`) at every GroupNorm input of one forward of the confocal
+    UNet3D (f32) and the light-sheet ResidualUNet3D (bf16) on a halo'd
+    112x234x234 patch: against its plain version and float64, torch's own gap
+    beside it as the tolerance, a repeat bitwise equal, y's strides x's; its
+    time beside its bound (two reads and one write of x at the HBM rate), the
+    plain version and one F.group_norm call (the yardstick, as the port called
+    it before); the launch pairs a forward. Returns the kernels line's entry."""
+    import torch.nn.functional as F
+
+    from pytorch3dunet_tpu_torch.models.unet import get_model
+    from pytorch3dunet_tpu_torch.ops import build, group_norm
+
+    patch_in = tuple(p + 2 * h for p, h in zip(PATCH, HALO))
+    gen_cpu = torch.Generator().manual_seed(SEED + 32)
+    rows, per_model = [], {}
+    for tag, config, dtype_name in GN_MODELS:
+        torch.manual_seed(SEED + 32)
+        model = get_model({**config, **({"dtype": dtype_name} if dtype_name else {})})
+        randomize_group_norms(model, gen_cpu)
+        model = model.to(device).eval()
+        x0 = torch.randn((1, 1, *patch_in), generator=torch.Generator(device=device).manual_seed(SEED + 32),
+                         device=device)
+        calls, launches = group_norm_inputs(model, x0)
+        planned = plan_launches(model, patch_in).gn
+        check(launches == len(calls) == planned > 0, f"{tag}: {launches} GroupNorm launch pairs for {len(calls)} "
+                                                     f"module calls, {planned} planned")
+        per_model[tag] = {"launches_per_forward": launches, "module_calls": len(calls)}
+        with torch.inference_mode():
+            for i, (norm, x) in enumerate(calls):
+                G, w, b, eps = norm.num_groups, norm.weight, norm.bias, norm.eps
+                layout = group_norm.launch_layout(x)
+                y = group_norm.group_norm_op(x, w, b, G, eps)
+                repeat = group_norm.group_norm_op(x, w, b, G, eps)
+                plain = group_norm.group_norm_reference(x, w, b, G, eps)
+                want = F.group_norm(x.double(), G, w.double(), b.double(), eps)
+                torch_y = F.group_norm(x.float(), G, w, b, eps).to(x.dtype)
+                if x.dtype == torch.bfloat16:
+                    want_cmp = want.to(torch.bfloat16).double()
+                else:
+                    want_cmp = want
+                scale = want.abs().max().item()
+                row = {"model": tag, "call": i, "x": tuple(x.shape), "dtype": str(x.dtype)[6:], "groups": G,
+                       "layout": {None: "other", (0, True): "nc", (0, False): "nc scalar",
+                                  (1, True): "channels_last", (1, False): "channels_last scalar"}[layout],
+                       "err": (y.double() - want_cmp).abs().max().item() / scale,
+                       "torch_err": (torch_y.double() - want_cmp).abs().max().item() / scale,
+                       "plain_err": (plain.double() - want_cmp).abs().max().item() / scale,
+                       "vs_plain": (y.double() - plain.double()).abs().max().item() / scale,
+                       "bitwise_repeat": torch.equal(y, repeat), "strides_kept": y.stride() == x.stride()}
+                row["kernel_ms"] = timed_ms(lambda: group_norm.group_norm_op(x, w, b, G, eps))
+                row["plain_ms"] = timed_ms(lambda: group_norm.group_norm_reference(x, w, b, G, eps))
+                row["library_ms"] = timed_ms(lambda: F.group_norm(x.float(), G, w, b, eps).to(x.dtype))
+                row["bound_ms"] = 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+                rows.append(row)
+                del y, repeat, plain, want, want_cmp, torch_y
+        del calls, model, x0
+        torch.cuda.empty_cache()
+    tol = {dtype: max(r["torch_err"] for r in rows if r["dtype"] == dtype) for dtype in {r["dtype"] for r in rows}}
+    for r in rows:
+        r["ok"] = (r["err"] <= tol[r["dtype"]] and r["vs_plain"] <= 2 * tol[r["dtype"]] and r["bitwise_repeat"]
+                   and r["strides_kept"] and r["layout"] != "other")
+        log(f"[32 group_norm] {r['model']:20s} #{r['call']:<2d} x{r['x']} {r['dtype']:8s} G={r['groups']} "
+            f"{r['layout']:13s} vs float64 {r['err']:.3e} (torch's F.group_norm {r['torch_err']:.3e}, plain "
+            f"{r['plain_err']:.3e}; tol {tol[r['dtype']]:.3e}) vs plain {r['vs_plain']:.3e} repeat "
+            f"{'bitwise' if r['bitwise_repeat'] else 'DIFFERS'} strides {'kept' if r['strides_kept'] else 'CHANGED'} | "
+            f"kernel {r['kernel_ms']:.3f} ms (bound {r['bound_ms']:.3f}) plain {r['plain_ms']:.3f} F.group_norm "
+            f"{r['library_ms']:.3f} {'ok' if r['ok'] else 'FAIL'}")
+    failed = [(r["model"], r["call"]) for r in rows if not r["ok"]]
+    check(not failed, f"the GroupNorm kernel fails at {failed}")
+    sums = {}
+    for tag in per_model:
+        mine = [r for r in rows if r["model"] == tag]
+        sums[tag] = {key: sum(r[key] for r in mine) for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms")}
+        sums[tag].update(per_model[tag], bytes_read_twice_written_once=sum(
+            3 * int(np.prod(r["x"])) * (2 if r["dtype"] == "bfloat16" else 4) for r in mine))
+        log(f"[32 group_norm] {tag}: {per_model[tag]['launches_per_forward']} launch pairs a forward "
+            f"({per_model[tag]['module_calls']} GroupNorm module calls); kernel {sums[tag]['kernel_ms']:.3f} ms | "
+            f"bound {sums[tag]['bound_ms']:.3f} ms | plain {sums[tag]['plain_ms']:.3f} ms | F.group_norm "
+            f"{sums[tag]['library_ms']:.3f} ms ({smi})")
+    log(f"[32 group_norm] tolerance = torch's own gap to float64, the largest of each dtype: {tol}")
+    first = GN_MODELS[0][0]
+    return {"name": group_norm.KERNEL, "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/group_norm.cu",
+            "replaces": None, "ms": sums[first]["kernel_ms"], "plain_ms": sums[first]["plain_ms"],
+            "bound_ms": sums[first]["bound_ms"], "bound_by": "bytes", "library_ms": sums[first]["library_ms"],
+            "library_call": "F.group_norm(x.float(), G, w, b).to(x.dtype)", "by_model": sums,
+            "max_err_vs_float64": {d: max(r["err"] for r in rows if r["dtype"] == d) for d in tol},
+            "torch_err_vs_float64": tol, "ptxas": ptxas_report(build.build_logs.get(group_norm.KERNEL, "")),
+            "work": f"the {per_model[first]['module_calls']} GroupNorm forwards of one UNet3D "
+                    f"{'x'.join(map(str, patch_in))} patch, f32"}
+
+
 def synthetic_batch(rs):
     """One (raw, target) batch of the confocal recipe's shape: an instance
     label of ~60 Voronoi cells, its (boundary, label) target as the recipe's
@@ -3349,7 +3519,7 @@ def main():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from pytorch3dunet_tpu_torch.models.unet import get_model
-    from pytorch3dunet_tpu_torch.ops import build, conv3d
+    from pytorch3dunet_tpu_torch.ops import build
     from pytorch3dunet_tpu_torch.ops.conv3d import (Conv3d, Conv3dFunction, conv3d_fwd, conv3d_fwd_reference,
                                                     conv3d_input_grad, conv3d_input_grad_reference, flip_weight,
                                                     plain_conv)
@@ -3414,18 +3584,18 @@ def main():
     zz, yy, xx = np.meshgrid(*(np.linspace(0, 6 * np.pi, s, dtype=np.float32) for s in VOLUME), indexing="ij")
     volume = (np.sin(zz) * np.cos(yy) * np.sin(xx) + 0.5 * rs.rand(*VOLUME)).astype(np.float32)
     patches = list(predictor.patches(volume, PATCH, STRIDE, HALO, TRANSFORMER))
-    n_conv = plan_launches(model, patch_in).k2
+    n = plan_launches(model, patch_in)
+    n_conv = n.k2
 
-    reset_launches()
+    launches = {}
     start = time.perf_counter()
-    out = predictor.predict_array(volume, PATCH, STRIDE, HALO, TRANSFORMER)
+    out = count_launches(launches, "predict", lambda: predictor.predict_array(volume, PATCH, STRIDE, HALO,
+                                                                              TRANSFORMER))
     first_s = time.perf_counter() - start
-    predict_launches = dict(conv3d.launches)
     log(f"[4 predict] predict_array {VOLUME} -> {out.shape} in {first_s:.2f} s (first call); "
-        f"{len(patches)} patches of {patch_in}, launches {predict_launches} (expected conv3d_fwd "
-        f"{n_conv} x {len(patches)}, conv3d_packw 0, conv3d_im2col 0)")
-    check(predict_launches == {"conv3d_fwd": n_conv * len(patches), "conv3d_packw": 0, "conv3d_im2col": 0},
-          f"predict launched {predict_launches}")
+        f"{len(patches)} patches of {patch_in}, launches {launches['predict']} (expected f32 conv3d_fwd "
+        f"{n_conv} x {len(patches)}, group_norm {n.gn} x {len(patches)}, no other)")
+    expect_launches(launches, "predict", k2=(n_conv * len(patches), 0), gn=(n.gn * len(patches), 0))
     check(out.shape == (MODEL["out_channels"], *VOLUME), f"output shape {out.shape}")
     check(np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1, f"output in [{out.min()}, {out.max()}]")
 
@@ -3549,24 +3719,21 @@ def main():
             return loss
 
         trainer.loss_criterion = recording_criterion
-        reset_launches()
         Conv3dFunction.grad_copies = 0
         start = time.perf_counter()
-        trainer.fit()
-        torch.cuda.synchronize()
+        count_launches(launches, "train", trainer.fit)
         fit_s = time.perf_counter() - start
-        train_launches = dict(conv3d.launches)
         grad_copies = Conv3dFunction.grad_copies
         trainer.loss_criterion = criterion
         n_val = TRAIN_STEPS // VALIDATE_AFTER
         n_train = plan_launches(MODEL, TRAIN_PATCH)
-        expected = {"conv3d_fwd": n_train.k2 * (TRAIN_STEPS + n_val), "conv3d_packw": n_train.k3 * TRAIN_STEPS,
-                    "conv3d_im2col": 0}
         log(f"[7 train] fit: {TRAIN_STEPS} steps of {TRAIN_PATCH} + {n_val} validations in {fit_s:.2f} s; "
-            f"launches {train_launches} (expected {expected}); dy layout copies per step "
+            f"launches {launches['train']} (GroupNorm only in the validations); dy layout copies per step "
             f"{grad_copies / TRAIN_STEPS:.1f}; losses {', '.join(f'{v:.5f}' for v in losses)}; "
             f"best val ARand {trainer.best_eval_score:.5f}")
-        check(train_launches == expected, f"train launched {train_launches}, expected {expected}")
+        # the steps need gradients: their GroupNorms stay torch's, the validations' take the kernel
+        expect_launches(launches, "train", k2=(n_train.k2 * (TRAIN_STEPS + n_val), 0),
+                        k3=(n_train.k3 * TRAIN_STEPS, 0), gn=(n_train.gn * n_val, 0))
         check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
         check(losses[-1] < losses[0], f"loss did not fall: {losses}")
         ckpt_path = Path(checkpoint_dir) / "last_checkpoint.pytorch"
@@ -3727,19 +3894,24 @@ def main():
     decoder, decoder_kernels = decoder_phase(device, train_batch, smi)
     decoder_rows = decoder_kernels["rows"]
 
-    by_path_dtype = {**sweep["launches"], **bf16, **recipes, **two_d, **options, **breadth, **serving,
-                     **parallel, **decoder}
-    unet_paths = {"predict": predict_launches, "train": train_launches}
-    paths = {**unet_paths, "resunet_predict": res["predict_launches"], "resunet_train": res["train_launches"],
-             **{path: {name: sum(counts.values()) for name, counts in by_dtype.items()}
-                for path, by_dtype in by_path_dtype.items()}}
+    # 32. the GroupNorm kernel at every GroupNorm input of a UNet3D (f32) and a ResidualUNet3D (bf16) forward
+    group_norm_kernel = group_norm_phase(device, smi)
+
+    by_path_dtype = {**launches, **res["launches"], **sweep["launches"], **bf16, **recipes, **two_d, **options,
+                     **breadth, **serving, **parallel, **decoder}
+    paths = {path: {name: sum(counts.values()) for name, counts in by_dtype.items()}
+             for path, by_dtype in by_path_dtype.items()}
+    group_norm_kernel["launches"] = paths["predict"]["group_norm"]
+    group_norm_kernel["launches_by_path"] = {path: counts["group_norm"] for path, counts in paths.items()}
+    group_norm_kernel["launches_by_path_dtype"] = {path: counts["group_norm"]
+                                                   for path, counts in by_path_dtype.items()}
     k2_bound = summed_bound([(shape, f, True) for _, shape, f in shapes], tc_bound)
     k2_bound_ffma = summed_bound([(shape, f, True) for _, shape, f in shapes])
     k3_bound = summed_bound([(shape, c, False) for _, shape, c in train_dgrads], tc_bound)
     k3_bound_ffma = summed_bound([(shape, c, False) for _, shape, c in train_dgrads])
     kernels = [
         {"name": "conv3d_fwd", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_fwd.cu",
-         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": train_launches["conv3d_fwd"],
+         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:135", "launches": paths["train"]["conv3d_fwd"],
          "launches_by_path": {path: counts["conv3d_fwd"] for path, counts in paths.items()},
          "launches_by_path_dtype": {path: counts["conv3d_fwd"] for path, counts in by_path_dtype.items()},
          "max_abs_err": max(e[torch.float32] for e in (errors, res["errors_k2"], decoder_kernels["errors_k2"])),
@@ -3756,7 +3928,7 @@ def main():
                                                  "library_call", "bound_ms", "bound_bf16_ms")}
                             for row in decoder_rows]},
         {"name": "conv3d_packw", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_packw.cu",
-         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": train_launches["conv3d_packw"],
+         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:218", "launches": paths["train"]["conv3d_packw"],
          "launches_by_path": {path: counts["conv3d_packw"] for path, counts in paths.items()},
          "launches_by_path_dtype": {path: counts["conv3d_packw"] for path, counts in by_path_dtype.items()},
          "max_abs_err": max(e[torch.float32] for e in (errors_k3, res["errors_k3"], decoder_kernels["errors_k3"])),
@@ -3772,7 +3944,7 @@ def main():
          "decoder_shapes": [{k: row[k] for k in ("conv", "dy", "C", "k3_ms", "k3_bf16_ms", "k3_plain_ms",
                                                  "k3_library_ms", "k3_bound_ms")} for row in decoder_rows]},
         {"name": "conv3d_im2col", "route": "cuda", "source": "pytorch3dunet_tpu_torch/csrc/conv3d_im2col.cu",
-         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": res["train_launches"]["conv3d_im2col"],
+         "replaces": "pytorch3dunet_tpu/ops/conv_pallas.py:53", "launches": paths["resunet_train"]["conv3d_im2col"],
          "launches_by_path": {path: counts["conv3d_im2col"] for path, counts in paths.items()},
          "launches_by_path_dtype": {path: counts["conv3d_im2col"] for path, counts in by_path_dtype.items()},
          "max_abs_err": res["errors"][torch.float32], "max_abs_err_bf16": res["errors"][torch.bfloat16],
@@ -3784,6 +3956,7 @@ def main():
          "ptxas": ptxas["conv3d_im2col"],
          "k2_same_shapes_ms": res["k2_same_ms"], "shapes": res["k1_count"],
          "work": f"the {res['k1_count']} K1 conv forwards of one ResidualUNet3D 112x234x234 patch, f32"},
+        group_norm_kernel,
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -19,13 +19,15 @@ Artifact (a zip, conventionally `.u3dx`):
                   (`torch.export.Dim`) unless --batch fixes it
     meta.json     the JAX artifact's keys, with `torch_version`, the `device`
                   it was traced on and runs on, the compute `dtype`, and the
-                  `custom_ops` its graph calls
+                  `custom_ops` its graph may call
 
 The model's 3x3x3 convs are calls of the custom op
-`pytorch3dunet_tpu_torch::conv3d_fwd` (ops/conv3d.py): a CUDA artifact runs
-the hand kernels, a CPU one their plain version. So loading an artifact needs
-the op registered, that is `pytorch3dunet_tpu_torch.ops.conv3d` imported,
-which `load_exported` does:
+`pytorch3dunet_tpu_torch::conv3d_fwd` (ops/conv3d.py), and a CUDA artifact's
+GroupNorms calls of `pytorch3dunet_tpu_torch::group_norm_fwd`
+(ops/group_norm.py): a CUDA artifact runs the hand kernels, a CPU one their
+plain version (and torch's GroupNorm). So loading an artifact needs the ops
+registered, that is `pytorch3dunet_tpu_torch.ops.conv3d` and `.group_norm`
+imported, which `load_exported` does:
 
     from pytorch3dunet_tpu_torch.export import load_exported
     model = load_exported("model.u3dx")
@@ -33,9 +35,10 @@ which `load_exported` does:
 
 The trace runs on the device of the config (the port's rule: CUDA unless the
 config says `device: cpu`), under `torch.no_grad()` with the parameters
-frozen, so every 3x3x3 conv takes `conv3d_fwd` and the op's fake
-implementation gives the trace its shapes. A checkpoint's EMA weights are
-baked in when it carries them (`utils/weights.py` `load_weights`).
+frozen, so every 3x3x3 conv takes `conv3d_fwd`, every GroupNorm on CUDA
+`group_norm_fwd`, and the ops' fake implementations give the trace its
+shapes. A checkpoint's EMA weights are baked in when it carries them
+(`utils/weights.py` `load_weights`).
 """
 
 import argparse
@@ -51,7 +54,7 @@ from pytorch3dunet_tpu_torch.__version__ import __version__
 from pytorch3dunet_tpu_torch.config import resolve_device
 from pytorch3dunet_tpu_torch.inference_device import normalize
 from pytorch3dunet_tpu_torch.models.unet import get_model, is_model_2d
-from pytorch3dunet_tpu_torch.ops import conv3d
+from pytorch3dunet_tpu_torch.ops import conv3d, group_norm
 from pytorch3dunet_tpu_torch.utils.misc import get_logger
 from pytorch3dunet_tpu_torch.utils.weights import load_weights
 
@@ -62,7 +65,8 @@ META_NAME = "meta.json"
 FORWARD_NAME = "forward.pt2"
 # what the JAX package's artifact holds in place of forward.pt2
 JAX_FORWARD_NAME = "forward.jaxexport"
-CUSTOM_OPS = [conv3d.OP_NAME]
+# the port's custom ops, which an exported graph may call and `load_exported` registers
+CUSTOM_OPS = [conv3d.OP_NAME, group_norm.OP_NAME]
 NORMALIZE_MODES = ("standardize", "standardize_patch", "normalize", "percentile")
 
 
@@ -199,8 +203,9 @@ class ExportedModel:
 
 
 def load_exported(path) -> ExportedModel:
-    """Loads an artifact written by `export_model`. The custom op its graph
-    calls is registered by ops/conv3d.py, imported with this module."""
+    """Loads an artifact written by `export_model`. The custom ops its graph
+    calls are registered by ops/conv3d.py and ops/group_norm.py, imported with
+    this module."""
     with zipfile.ZipFile(path) as z:
         names = set(z.namelist())
         if FORWARD_NAME not in names:

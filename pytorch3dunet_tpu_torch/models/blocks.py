@@ -32,8 +32,10 @@ JAX's default; the port's default is cuDNN's transposed conv (ROADMAP F12).
 Both run on the generic path's parameters: the state dict is the same.
 
 Each layer computes in its input's dtype with its float32 parameters cast to
-it, except the norms, which compute in float32 on a float32 copy of a bfloat16
-input and cast back (JAX blocks.py:126-128, 226-236).
+it, except the norms, which compute in float32 and round once to bfloat16
+(JAX blocks.py:126-128, 226-236): on a float32 copy of a bfloat16 input, or,
+for a GroupNorm forward that needs no gradient on CUDA, inside the kernel of
+ops/group_norm.py.
 
 Under a space mesh (parallel/spatial.py `spatial_axis`) a block sees a D-slab:
 GroupNorm all-reduces its moments, and a deconv decoder takes a 2-plane halo
@@ -50,6 +52,7 @@ import torch.nn.functional as F
 
 from pytorch3dunet_tpu_torch.models.se import ChannelSpatialSELayer3D
 from pytorch3dunet_tpu_torch.ops.conv3d import Conv2d, Conv3d, cast_to
+from pytorch3dunet_tpu_torch.ops.group_norm import group_norm_op, takes_kernel
 from pytorch3dunet_tpu_torch.ops.upconv import (concat_batch_stats, deconv_mode, fused_decoder_mixed,
                                                fused_decoder_on, fused_up_concat_conv, fused_up_concat_conv_2d,
                                                phase_conv_transpose)
@@ -85,12 +88,18 @@ def _moments(x, dims, count, mesh):
 class GroupNorm(_Float32Norm, nn.GroupNorm):
     """`nn.GroupNorm` in float32; under a space mesh (parallel/spatial.py)
     the per-(sample, group) moments are all-reduced over the D-slabs and every
-    rank normalizes with the global ones (JAX blocks.py:104-118)."""
+    rank normalizes with the global ones (JAX blocks.py:104-118). Unsharded,
+    a forward that needs no gradient on CUDA (ops/group_norm.py
+    `takes_kernel`: inference, validation, export) runs the hand kernel
+    `group_norm_op`, which reads x in its layout and dtype and writes y with
+    x's strides; one that needs a gradient stays on torch's GroupNorm."""
 
     def forward(self, x):
         with span("p3d.norm.group"):
             mesh = active_spatial_axis()
             if mesh is None:
+                if takes_kernel(x, self.weight, self.bias):
+                    return group_norm_op(x, self.weight, self.bias, self.num_groups, self.eps)
                 return super().forward(x)
             x32 = x.float() if x.dtype == torch.bfloat16 else x
             n, c = x32.shape[:2]

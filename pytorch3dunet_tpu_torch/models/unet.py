@@ -11,8 +11,9 @@ softmax over the channel axis for segmentation, the logits twice otherwise.
 package's semantics (pytorch3dunet_tpu/models/unet.py `UNetModule`): the input
 is cast to bf16, the parameters stay float32 and each layer casts them to its
 input's dtype where it uses them (so state dicts and checkpoints are the f32
-ones), GroupNorm and BatchNorm compute in float32 on a float32 copy and cast
-back, and the logits come back in float32.
+ones), GroupNorm and BatchNorm compute in float32 and round once to bf16 (on a
+float32 copy, or inside the GroupNorm kernel where a forward needs no
+gradient on CUDA), and the logits come back in float32.
 
 `model.remat: true` checkpoints each encoder and decoder level in training
 (JAX unet.py:76-79 `nn.remat`): the level keeps only its inputs and runs again
@@ -228,7 +229,39 @@ def kernel_conv_plan(model, spatial, space_mesh: bool = False) -> list[tuple[str
     return plan
 
 
-_MODELS = {cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3D, UNet2D, ResidualUNet2D)}
+def group_norm_plan(model, spatial) -> list[str]:
+    """Names of the GroupNorm modules that one forward of `model` on an input
+    of spatial shape `spatial` calls, in order, as the switches are set now:
+    every GroupNorm of the encoders and decoders but the one before each fused
+    decoder's first conv, whose statistics the fused join computes per branch
+    (`fused_single_conv`). Without a space mesh, each is one launch pair of
+    the GroupNorm kernel where the forward needs no gradient on CUDA. A 2D
+    model reads the last two axes of `spatial`."""
+    size = tuple(spatial)[-(3 if model.is3d else 2):]
+    sizes, names = [], []
+    for i, encoder in enumerate(model.encoders):
+        if encoder.pool_kernel_size is not None:
+            size = tuple(s // k for s, k in zip(size, encoder.pool_kernel_size))
+        sizes.append(size)
+        names += _group_norms(encoder.basic_module, f"encoders.{i}.basic_module")
+    for i, decoder in enumerate(model.decoders):
+        skip, x = sizes[-2 - i], sizes[-1 - i]
+        prefix = f"decoders.{i}.basic_module"
+        norms = _group_norms(decoder.basic_module, prefix)
+        if decoder.fused_mode((1, decoder.out_channels, *skip), (1, decoder.in_channels, *x)) is not None:
+            single = decoder.basic_module.SingleConv1
+            ci = list(single._modules).index("conv")
+            if ci and isinstance(single[ci - 1], nn.GroupNorm):
+                norms.remove(f"{prefix}.SingleConv1.{list(single._modules)[ci - 1]}")
+        names += norms
+    return names
+
+
+def _group_norms(block, prefix):
+    return [f"{prefix}.{name}" for name, m in block.named_modules() if isinstance(m, nn.GroupNorm)]
+
+
+_MODELS ={cls.__name__: cls for cls in (UNet3D, ResidualUNet3D, ResidualUNetSE3D, UNet2D, ResidualUNet2D)}
 
 
 def get_model(model_config: dict) -> UNet3D:

@@ -33,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # stream as c_void_p (a bare Python int would be cut to 32 bits), sizes as int64
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 _CONV_ARGS = [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR]
+# x, weight, bias, y, workspace, ticket, N, C, S, G, layout, vectorized, eps, stream
+_GROUP_NORM_ARGS = [_PTR] * 6 + [_I64] * 4 + [ctypes.c_int] * 2 + [ctypes.c_double, _PTR]
 SIGNATURES = {
     "conv3d_fwd": {
         "conv3d_fwd_f32": (_CONV_ARGS, ctypes.c_int),
@@ -52,6 +54,12 @@ SIGNATURES = {
         "conv3d_im2col_bf16": (_CONV_ARGS, ctypes.c_int),
         "conv3d_im2col_error_string": ([ctypes.c_int], ctypes.c_char_p),
         "conv3d_im2col_smem_bytes": ([], ctypes.c_int),
+    },
+    "group_norm": {
+        "group_norm_fwd_f32": (_GROUP_NORM_ARGS, ctypes.c_int),
+        "group_norm_fwd_bf16": (_GROUP_NORM_ARGS, ctypes.c_int),
+        "group_norm_workspace_floats": ([_I64] * 4 + [ctypes.c_int] * 3, ctypes.c_int64),
+        "group_norm_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
 

@@ -139,7 +139,7 @@ def test_cli_end_to_end(tmp_path, artifacts_2d):
     assert meta["format"] == "pytorch3dunet_tpu_torch.export/1"
     assert meta["model"]["name"] == "UNet2D" and meta["normalize"] == "standardize"
     assert meta["stats"] == {"mean": 0.4, "std": 1.7} and meta["device"] == "cpu" and meta["dtype"] == "float32"
-    assert meta["custom_ops"] == ["pytorch3dunet_tpu_torch::conv3d_fwd"]
+    assert meta["custom_ops"] == ["pytorch3dunet_tpu_torch::conv3d_fwd", "pytorch3dunet_tpu_torch::group_norm_fwd"]
     assert meta["torch_version"] == torch.__version__ and meta["pool_divisibility"] == 2
     x = _patches(2, PATCH_2D, 7)
     # the JAX artifact without normalization, fed the same standardized patch
