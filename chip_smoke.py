@@ -52,7 +52,16 @@ forward on the im2col kernel (K1), and unset it after:
      random weights) on the same synthetic volume and patches as phase 4;
      checks 14 K1 + 4 K2 launches per forward, the output, and one patch
      against the plain conv;
- 12. ResidualUNetSE3D: one full-width forward of one patch, checked the same way;
+ 12. ResidualUNetSE3D: one full-width f32 forward of one patch under
+     P3DUNET_TAPFOLD=1, checked as phase 11's (K1, K2 and GroupNorm launches,
+     the plain-conv forward); then the benchmark's lightsheet_resunetse3d
+     configuration (the light-sheet recipe with the model's name swapped) in
+     bfloat16 through `DeviceSlidingWindowPredictor` at full width,
+     P3DUNET_TAPFOLD unset: one seeded 200x425x425 volume, 27 patches of
+     112x234x234, against the benchmark's plain float32 reference one patch
+     at a time, within the cell's `max_abs_gap` limit; checks the K2 and
+     GroupNorm launches and the scSE gates' calls against their plans
+     (`se_plan`);
  13. ResidualUNet3D train path: the loss, optimizer, eval_metric and
      lr_scheduler of resources/3DUnet_lightsheet_boundary/train_config.yml, 4
      Adam steps on the synthetic 80x170x170 batch and 1 validation; checks 18
@@ -722,10 +731,74 @@ def profile_step(step, top=12, tag="9 profile", what="one train step"):
             f"({100 * wgrad_ms / kernel_ms:.1f}% of the summed kernel time)")
 
 
+# phase 12: the benchmark's ResidualUNetSE3D cell, its configuration, seeded
+# weights and volume, and its limit (benchmark/workloads/<SE_CELL>.json)
+SE_CELL, SE_SEED = "lightsheet_resunetse3d.sweep_grid_bf16", 2**31 + 1201
+
+
+def se_sweep_phase(device, launches):
+    """Phase 12: ResidualUNetSE3D's bf16 device sweep of one volume against
+    the plain float32 reference. Adds the sweep's launches to `launches`."""
+    from benchmark import harness, seeded
+    from benchmark.reference import sweep as ref_sweep
+    from benchmark.traffic.sweep import recipe_model
+    from pytorch3dunet_tpu_torch.datasets.utils import calculate_stats
+    from pytorch3dunet_tpu_torch.inference_device import detect_device_path
+    from pytorch3dunet_tpu_torch.models.unet import get_model, se_plan
+    from pytorch3dunet_tpu_torch.predict import get_predictor
+
+    cell = harness.load_cell(SE_CELL)
+    config = harness.load_config(cell["config"])
+    recipe = config[cell["recipe"]]
+    patch, stride, halo = recipe["patch_shape"], recipe["stride_shape"], recipe["halo_shape"]
+    model_cfg = recipe_model(config, recipe)
+    params = seeded.weights(config["model"], SE_SEED, device)
+    model = get_model(model_cfg)
+    model.load_state_dict(params, strict=True)
+    model = model.to(device).eval()
+    predictor = get_predictor(model, {"model": model_cfg, "device": device, "predictor": dict(recipe["predictor"]),
+                                      "loaders": {}})
+    volume = seeded.volumes(tuple(cell["volume"]), 1, SE_SEED, device, int(cell["cells"]))[0]
+    patch_in = tuple(p + 2 * h for p, h in zip(patch, halo))
+    patches = len(ref_sweep.grid(volume.shape, patch, stride))
+    n = plan_launches(model, patch_in)
+    gates, calls = se_plan(model), []
+    hooks = [model.get_submodule(name).register_forward_hook(lambda _m, _i, _o, name=name: calls.append(name))
+             for name in gates]
+    normalize, stats = detect_device_path(recipe["transformer"], calculate_stats(volume))
+    start = time.perf_counter()
+    out = count_launches(launches, "resunet_se_sweep_bf16", lambda: predictor.predict_array(
+        volume, patch, stride, halo, normalize=normalize, stats=stats))
+    first_s = time.perf_counter() - start
+    for hook in hooks:
+        hook.remove()
+    start = time.perf_counter()
+    predictor.predict_array(volume, patch, stride, halo, normalize=normalize, stats=stats)
+    second_s = time.perf_counter() - start
+    log(f"[12 resunet-se sweep bf16] {tuple(volume.shape)}: {patches} patches of {patch_in} in {first_s:.2f} s "
+        f"(first call), {second_s:.2f} s (second); launches {launches['resunet_se_sweep_bf16']} (a forward: "
+        f"{n.k2} K2, {n.gn} GroupNorm); scSE gate calls {len(calls)} ({len(gates)} a forward, se_plan)")
+    expect_launches(launches, "resunet_se_sweep_bf16", k2=(0, n.k2 * patches), gn=(0, n.gn * patches))
+    check(calls == gates * patches, f"the scSE gates were called {len(calls)} times, expected {len(gates)} x "
+                                    f"{patches} in se_plan's order")
+    del predictor, model
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    ref = ref_sweep.predict(volume, params, dict(model_cfg, dtype=None), patch, stride, halo,
+                            recipe["predictor"].get("blend", "assign"), device)
+    gap, limit = ref_sweep.max_gap(out, ref), cell["limits"]["max_abs_gap"]
+    log(f"[12 resunet-se sweep bf16] against the plain float32 reference ({time.perf_counter() - start:.1f} s, one "
+        f"patch at a time): max|d| = {gap:.3e} (the cell's limit {limit}); probs in [{out.min():.4f}, "
+        f"{out.max():.4f}], mean {out.mean():.4f}")
+    check(np.isfinite(out).all() and gap <= limit, f"ResidualUNetSE3D bf16 sweep: max|d| {gap} (limit {limit})")
+
+
 def residual_unet_phases(device, gen, volume, batches):
     """Phases 10-14: K1 against its plain version, then ResidualUNet3D predict
-    and train (and one ResidualUNetSE3D forward) at full width with
-    P3DUNET_TAPFOLD=1, and their times. Returns what the kernels line needs."""
+    and train at full width with P3DUNET_TAPFOLD=1 (between them phase 12,
+    one ResidualUNetSE3D forward with it, then its bf16 device sweep
+    without it), and their times.
+    Returns what the kernels line needs."""
     from pytorch3dunet_tpu_torch.models.unet import get_model
     from pytorch3dunet_tpu_torch.ops.conv3d import (conv3d_fwd, conv3d_fwd_reference, conv3d_input_grad,
                                                     conv3d_input_grad_reference, plain_conv)
@@ -804,7 +877,8 @@ def residual_unet_phases(device, gen, volume, batches):
         check(err <= FORWARD_TOL, f"ResidualUNet3D forward differs from the plain forward by {err}")
         del probs, probs_plain
 
-        # 12. ResidualUNetSE3D, one full-width forward
+        # 12. ResidualUNetSE3D: one full-width f32 forward on K1 and K2 against the plain forward, then the
+        # device sweep in bf16 as the benchmark runs it (P3DUNET_TAPFOLD unset)
         torch.manual_seed(SEED)
         se_model = get_model({**RES_MODEL, "name": "ResidualUNetSE3D"})
         randomize_group_norms(se_model, torch.Generator().manual_seed(SEED))
@@ -816,11 +890,14 @@ def residual_unet_phases(device, gen, volume, batches):
         err = (se_probs - se_plain).abs().max().item()
         finite = bool(torch.isfinite(se_probs).all()) and 0 <= se_probs.min().item() <= se_probs.max().item() <= 1
         se_n = plan_launches(se_model, patch_in)
-        log(f"[12 resunet-se] one {patch_in} forward: launches {launches['resunet_se_forward']}; "
+        log(f"[12 resunet-se] one {patch_in} f32 forward: launches {launches['resunet_se_forward']}; "
             f"kernel vs plain max|d| = {err:.3e} (tol {FORWARD_TOL}); finite in [0, 1]: {finite}")
         expect_launches(launches, "resunet_se_forward", k2=(se_n.k2, 0), k1=(se_n.k1, 0), gn=(se_n.gn, 0))
         check(finite and err <= FORWARD_TOL, f"ResidualUNetSE3D forward: finite {finite}, max|d| {err}")
         del se_model, se_probs, se_plain
+        os.environ.pop("P3DUNET_TAPFOLD")
+        se_sweep_phase(device, launches)
+        os.environ["P3DUNET_TAPFOLD"] = "1"
 
         # 13. ResidualUNet3D train path at full width. cuDNN's default
         # algorithms for this model's f32 backward are not deterministic (the

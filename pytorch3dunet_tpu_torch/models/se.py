@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from pytorch3dunet_tpu_torch.ops.conv3d import cast_to
 from pytorch3dunet_tpu_torch.parallel.mesh import all_reduce_sum
 from pytorch3dunet_tpu_torch.parallel.spatial import active_spatial_axis
+from pytorch3dunet_tpu_torch.utils.misc import span
 
 
 class ChannelSELayer3D(nn.Module):
@@ -56,7 +57,8 @@ class SpatialSELayer3D(nn.Module):
 
 
 class ChannelSpatialSELayer3D(nn.Module):
-    """Concurrent channel and spatial SE, combined by an element-wise max."""
+    """Concurrent channel and spatial SE, combined by an element-wise max, in
+    the span `p3d.se` (the scSE gate's kernels in a profiler's trace)."""
 
     def __init__(self, num_channels: int, reduction_ratio: int = 2):
         super().__init__()
@@ -64,4 +66,5 @@ class ChannelSpatialSELayer3D(nn.Module):
         self.sSE = SpatialSELayer3D(num_channels)
 
     def forward(self, x):
-        return torch.maximum(self.cSE(x), self.sSE(x))
+        with span("p3d.se"):
+            return torch.maximum(self.cSE(x), self.sSE(x))

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.utils.checkpoint
 
 from pytorch3dunet_tpu_torch.models.blocks import Decoder, Encoder, conv_layer, recomputing
+from pytorch3dunet_tpu_torch.models.se import ChannelSpatialSELayer3D
 from pytorch3dunet_tpu_torch.ops.conv3d import Conv3d, forward_variant
 from pytorch3dunet_tpu_torch.ops.upconv import skipconv_mode, upconv_mode
 from pytorch3dunet_tpu_torch.utils.misc import number_of_features_per_level
@@ -255,6 +256,14 @@ def group_norm_plan(model, spatial) -> list[str]:
                 norms.remove(f"{prefix}.SingleConv1.{list(single._modules)[ci - 1]}")
         names += norms
     return names
+
+
+def se_plan(model) -> list[str]:
+    """Names of the scSE gates (`ChannelSpatialSELayer3D`, each in a `p3d.se`
+    span) that one forward of `model` calls, in order: one after every ResNet
+    block of a ResidualUNetSE3D, the encoders' then the decoders' (9 at 5
+    levels); none in the other families."""
+    return [name for name, m in model.named_modules() if isinstance(m, ChannelSpatialSELayer3D)]
 
 
 def _group_norms(block, prefix):
