@@ -23,6 +23,7 @@ on-device augmentation is ops/augment.py.
 """
 
 import importlib
+import inspect
 import random
 from collections.abc import Callable
 
@@ -631,7 +632,13 @@ class Transformer:
 
     def __init__(self, phase_config: dict, base_config: dict):
         self.phase_config = phase_config
-        self.config_base = base_config
+        # only the base keys that some transform of the pipelines names: a
+        # Standardize pipeline takes the mean and std, so the percentiles that
+        # `calculate_stats` defers stay uncomputed, and the statistics, with the
+        # volume they hold until then, are not kept here
+        named = {key for entries in phase_config.values() for entry in entries or ()
+                 for key in self._named_arguments(entry["name"])}
+        self.config_base = {key: base_config[key] for key in base_config if key in named}
         self.seed = GLOBAL_RANDOM_STATE.randint(10_000_000)
 
     def raw_transform(self):
@@ -644,6 +651,18 @@ class Transformer:
     def _transformer_class(class_name):
         module = importlib.import_module("pytorch3dunet_tpu_torch.augment.transforms")
         return getattr(module, class_name)
+
+    @classmethod
+    def _named_arguments(cls, class_name) -> set[str]:
+        """The keyword arguments a transform names, not those its `**kwargs`
+        swallows; none for a name that is no transform (its pipeline fails
+        when it is built)."""
+        try:
+            transform = cls._transformer_class(class_name)
+        except AttributeError:
+            return set()
+        parameters = inspect.signature(transform).parameters.values()
+        return {p.name for p in parameters if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
 
     def _create_transform(self, phase_name):
         assert phase_name in self.phase_config, f"phase config has no '{phase_name}' pipeline"

@@ -13,6 +13,7 @@ Patches are numpy arrays; rescaling uses scipy. The HDF5 datasets need h5py,
 which `datasets/hdf5.py` imports only where it reads a file.
 """
 
+from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
@@ -379,17 +380,50 @@ def default_prediction_collate(batch: list) -> Any:
     raise TypeError(error_msg.format(type(batch[0])))
 
 
-def calculate_stats(img, skip: bool = False) -> dict[str, Any]:
-    """Percentile/mean/std statistics over the whole volume (datasets/utils.py:499-515)."""
+class VolumeStats(Mapping):
+    """The read-only statistics `calculate_stats` returns: `mean` and `std`
+    computed at once, the percentiles `pmin` (1) and `pmax` (99.6) at the
+    first read of either, by the same two `np.percentile` calls (one call
+    with both ranks gives other float64 bits), after which the volume is
+    released; the caller does not write to the volume before then. A
+    `Standardize` pipeline reads only the mean and std, so it never pays for
+    the two sorts; every other read form (`{**stats}`, `dict(stats)`, `==`,
+    copy, pickle) goes through `__getitem__` and sees the values the eager
+    calls give. Two first reads that race both compute the same values."""
+
+    def __init__(self, img, mean, std):
+        self._img = img
+        self._values = {"pmin": None, "pmax": None, "mean": mean, "std": std}
+
+    def __getitem__(self, key):
+        img = self._img
+        if key in ("pmin", "pmax") and img is not None:
+            with span("p3d.stats"), span("p3d.stats.percentiles"):
+                self._values["pmin"] = np.percentile(img, 1)
+                self._values["pmax"] = np.percentile(img, 99.6)
+            self._img = None
+        return self._values[key]
+
+    def __contains__(self, key):
+        return key in self._values
+
+    def __iter__(self):
+        return iter(self._values)
+
+    def __len__(self):
+        return len(self._values)
+
+    def __reduce__(self):
+        return dict, (dict(self),)
+
+
+def calculate_stats(img, skip: bool = False) -> Mapping[str, Any]:
+    """Percentile/mean/std statistics over the whole volume (datasets/utils.py:499-515),
+    the percentiles deferred to their first read (`VolumeStats`)."""
     if skip:
         return {"pmin": None, "pmax": None, "mean": None, "std": None}
     with span("p3d.stats"):
-        return {
-            "pmin": np.percentile(img, 1),
-            "pmax": np.percentile(img, 99.6),
-            "mean": np.mean(img),
-            "std": np.std(img),
-        }
+        return VolumeStats(img, np.mean(img), np.std(img))
 
 
 def mirror_pad(image: np.ndarray, padding_shape: tuple[int, int, int]) -> np.ndarray:

@@ -8,11 +8,14 @@ Each copy is held to the original's result on the same seeded input, exactly.
 """
 
 import ast
+import copy
 import os
+import pickle
 import random
 import re
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import h5py
@@ -33,6 +36,7 @@ import pytorch3dunet_tpu_torch.datasets.utils as port_dutils
 import pytorch3dunet_tpu_torch.metrics as port_metrics
 import pytorch3dunet_tpu_torch.utils.ndimage as port_ndimage
 from pytorch3dunet_tpu_torch import config as port_config
+from pytorch3dunet_tpu_torch.inference_device import detect_device_path
 from pytorch3dunet_tpu_torch.models.unet import get_model
 from pytorch3dunet_tpu_torch.utils import interop as port_interop
 from pytorch3dunet_tpu_torch.utils import native as port_native
@@ -104,6 +108,68 @@ def test_mirror_pad_remove_padding_and_stats_match_jax(halo):
     _assert_same(port_dutils.remove_padding(padded[None], halo), jax_dutils.remove_padding(padded[None], halo))
     assert port_dutils.calculate_stats(volume) == jax_dutils.calculate_stats(volume)
     assert port_dutils.calculate_stats(volume, skip=True) == jax_dutils.calculate_stats(volume, skip=True)
+
+
+def _raw_transform_stats(stats, want):
+    config = {"raw": [{"name": "Standardize"}, {"name": "PercentileNormalizer"}]}
+    standardize, percentile = port_transforms.Transformer(config, stats).raw_transform().transforms
+    return {"pmin": percentile.pmin, "pmax": percentile.pmax, "mean": standardize.mean, "std": standardize.std}
+
+
+def _standardize_transform_stats(stats, want):
+    config = {"raw": [{"name": "Standardize"}, {"name": "ToTensor", "expand_dims": True}], "label": None}
+    standardize, _ = port_transforms.Transformer(config, stats).raw_transform().transforms
+    return {"mean": standardize.mean, "std": standardize.std}
+
+
+STATS_KEYS, PERCENTILES, MOMENTS = ("pmin", "pmax", "mean", "std"), ("pmin", "pmax"), ("mean", "std")
+# each way of reading `calculate_stats`, and the keys of what it gives
+STATS_READS = {
+    "item": (lambda stats, want: {key: stats[key] for key in want}, STATS_KEYS),
+    "get": (lambda stats, want: {key: stats.get(key) for key in want}, STATS_KEYS),
+    "unpack": (lambda stats, want: {**stats}, STATS_KEYS),
+    "dict": (lambda stats, want: dict(stats), STATS_KEYS),
+    "keys": (lambda stats, want: {key: stats[key] for key in stats.keys()}, STATS_KEYS),
+    "items": (lambda stats, want: dict(stats.items()), STATS_KEYS),
+    "eq_jax": (lambda stats, want: want if stats == want and want == stats else {}, STATS_KEYS),
+    "copy": (lambda stats, want: copy.copy(stats), STATS_KEYS),
+    "deepcopy": (lambda stats, want: copy.deepcopy(stats), STATS_KEYS),
+    "pickle": (lambda stats, want: pickle.loads(pickle.dumps(stats)), STATS_KEYS),
+    "percentile_normalizer": (lambda stats, want: detect_device_path([{"name": "PercentileNormalizer"}], stats)[1],
+                              PERCENTILES),
+    "transformer": (_raw_transform_stats, STATS_KEYS),
+    "transformer_standardize": (_standardize_transform_stats, MOMENTS),
+    "standardize": (lambda stats, want: detect_device_path([{"name": "Standardize"}, {"name": "ToTensor"}], stats)[1],
+                    MOMENTS),
+    "membership": (lambda stats, want: {key: stats[key] for key in MOMENTS if key in stats and "pmin" in stats},
+                   MOMENTS),
+}
+
+
+@pytest.mark.parametrize("form", list(STATS_READS))
+def test_calculate_stats_reads_the_eager_values_and_defers_the_percentiles(form, monkeypatch):
+    """Every read form gives the JAX package's eager values bit for bit; the two
+    `np.percentile` calls run once, at the first read of `pmin` / `pmax`, and
+    never for a reader of the mean and std alone; the volume is released once
+    they ran, or once the statistics are dropped."""
+    volume = np.random.RandomState(4).rand(6, 10, 12).astype(np.float32)
+    want = jax_dutils.calculate_stats(volume)
+    ranks, percentile = [], np.percentile
+    monkeypatch.setattr(np, "percentile", lambda a, q, **kwargs: ranks.append(q) or percentile(a, q, **kwargs))
+    stats = port_dutils.calculate_stats(volume)
+    assert ranks == []
+    read, keys = STATS_READS[form]
+    got = read(stats, want)
+    reads_percentiles = "pmin" in keys
+    assert ranks == ([1, 99.6] if reads_percentiles else [])
+    assert tuple(got) == keys
+    for key, value in got.items():
+        assert type(value) is type(want[key]) and value == want[key]
+    released = weakref.ref(volume)
+    del volume
+    assert (released() is None) == reads_percentiles
+    del stats
+    assert released() is None
 
 
 def test_random_scaler_matches_jax():
@@ -278,6 +344,33 @@ def test_h5_datasets_match_jax(tmp_path, dataset, phase):
         assert len(g) == len(w) > 1
         for i in range(len(g)):
             _assert_same(g[i], w[i])
+
+
+@pytest.mark.parametrize("dataset", ["StandardHDF5Dataset", "LazyHDF5Dataset"])
+@pytest.mark.parametrize("raw,ranks", [(["Standardize"], []), (["PercentileNormalizer"], [1, 99.6]), ([], [])],
+                         ids=["standardize", "percentile", "none"])
+def test_h5_test_dataset_computes_and_keeps_only_the_statistics_its_pipeline_takes(tmp_path, monkeypatch, dataset,
+                                                                                   raw, ranks):
+    """The predict CLIs' datasets with `global_normalization`: a Standardize
+    pipeline runs no `np.percentile`, a PercentileNormalizer the two eager
+    calls; no dataset keeps the volume its statistics were computed on; and
+    the device sweep reads from its transformer the JAX package's values."""
+    _write_h5(tmp_path / "test.h5", 2)
+    with h5py.File(tmp_path / "test.h5") as f:
+        want = jax_dutils.calculate_stats(f["raw"][:])
+    called, percentile = [], np.percentile
+    monkeypatch.setattr(np, "percentile", lambda a, q, **kwargs: called.append(q) or percentile(a, q, **kwargs))
+    volumes, calculate_stats = [], port_hdf5.calculate_stats
+    monkeypatch.setattr(port_hdf5, "calculate_stats",
+                        lambda img, skip=False: volumes.append(weakref.ref(img)) or calculate_stats(img, skip))
+    pipeline = [{"name": name} for name in raw] + [{"name": "ToTensor", "expand_dims": True}]
+    slice_builder = {"name": "SliceBuilder", "patch_shape": [6, 64, 64], "stride_shape": [6, 64, 64]}
+    data = getattr(port_hdf5, dataset)(str(tmp_path / "test.h5"), "test", slice_builder, {"raw": pipeline},
+                                       global_normalization=True)
+    assert called == ranks
+    assert len(volumes) == 1 and volumes[0]() is None
+    assert detect_device_path(pipeline, data.transformer.config_base) == detect_device_path(pipeline, want)
+    assert called == ranks
 
 
 def test_port_loaders_read_the_h5_files(tmp_path):

@@ -72,8 +72,19 @@ def test_predict_array_and_calculate_stats_record_their_spans():
     volume = np.random.RandomState(1).rand(8, 40, 40).astype(np.float32)
     names = _recorded(lambda: predictor.predict_array(volume, PATCH, PATCH, (2, 4, 4)))
     assert "p3d.norm.group" in names and "p3d.stats" not in names
-    assert "p3d.stats" in _recorded(lambda: calculate_stats(volume))
+    stats = {}
+    names = _recorded(lambda: stats.update(lazy=calculate_stats(volume), skipped=calculate_stats(volume, skip=True)))
+    assert "p3d.stats" in names and "p3d.stats.percentiles" not in names
+    assert not _recorded(lambda: [stats["skipped"][key] for key in ("pmin", "pmax", "mean", "std")]) & {
+        "p3d.stats", "p3d.stats.percentiles"}
     assert "p3d.stats" not in _recorded(lambda: calculate_stats(volume, skip=True))
+    # the mean and std are read for free; the percentiles run once, at the first read of either, in a `p3d.stats`
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        values = [stats["lazy"][key] for key in ("mean", "std", "pmin", "pmax", "pmin")]
+    assert values[2] < values[3]
+    outer, inner = sorted((e for e in prof.events() if e.name.startswith("p3d.stats")), key=lambda e: e.name)
+    assert (outer.name, inner.name) == ("p3d.stats", "p3d.stats.percentiles")
+    assert outer.time_range.start <= inner.time_range.start <= inner.time_range.end <= outer.time_range.end
 
 
 def test_trainer_update_records_batch_and_step(tmp_path):
@@ -93,7 +104,7 @@ def test_no_profiler_no_record_function(monkeypatch):
         model(x)
     predictor = DeviceSlidingWindowPredictor(model, None, 1, "cpu")
     predictor.predict_array(np.zeros((8, 32, 32), np.float32), PATCH, PATCH, (0, 0, 0))
-    calculate_stats(np.zeros(PATCH, np.float32))
+    assert calculate_stats(np.zeros(PATCH, np.float32))["pmax"] == 0
 
 
 def test_export_under_the_profiler_keeps_no_profiler_op(tmp_path):
